@@ -1,0 +1,5 @@
+"""Batched parameter optimizers (NFT) over the slot kernels."""
+
+from queasars_tpu_torch.optim.nft import BatchedNFT, NFTConfig
+
+__all__ = ["BatchedNFT", "NFTConfig"]
