@@ -7,7 +7,9 @@ kernels' plain PyTorch versions.  It imports ``torch``, numpy and the
 standard library only.
 
 Ported so far: the exact-estimator EVQE solve of diagonal (JSSP)
-Hamiltonians on the four slot kernels — see ROADMAP.md for what follows.
+Hamiltonians on the JAX package's two kernel routes, the kron-fold route
+(the default; four fold kernels) and the slot route (``QUEASARS_MXU=0``;
+four slot kernels) — see ROADMAP.md for what follows.
 """
 
 __version__ = "0.1.0"

@@ -34,13 +34,12 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kGateRot = 1;
 constexpr int kGateCrot = 3;
-constexpr int kPairThreads = 256;
-constexpr int kReduceThreads = 256;
-constexpr long long kReduceChunk = 4096;  // amplitudes per first-pass block
 constexpr float kHalfPi = 1.57079632679489662f;
 constexpr float kPi = 3.14159265358979324f;
 
@@ -54,14 +53,6 @@ struct Genome {
   int n_layers;
   int n_qubits;
 };
-
-__global__ void init_zero_state(float* state, long long dim) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= dim) return;
-  float* s = state + (long long)blockIdx.y * 2 * dim;
-  s[i] = i == 0 ? 1.0f : 0.0f;
-  s[dim + i] = 0.0f;
-}
 
 // Semantics of _apply_u3_slot (pallas_kernels.py:55-115) with the U3 entries
 // of _u3_entries (:44-52).
@@ -100,49 +91,6 @@ __global__ void apply_slot(float* state, Genome g, int layer, int q, long long d
   im[i0] = u00r * m0 + u00i * r0 + u01r * m1 + u01i * r1;
   re[i1] = u11r * r1 - u11i * m1 + u10r * r0 - u10i * m0;
   im[i1] = u11r * m1 + u11i * r1 + u10r * m0 + u10i * r0;
-}
-
-__device__ float block_sum(float value, float* shared) {
-  shared[threadIdx.x] = value;
-  __syncthreads();
-  for (int stride = blockDim.x / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) shared[threadIdx.x] += shared[threadIdx.x + stride];
-    __syncthreads();
-  }
-  return shared[0];
-}
-
-__global__ void energy_partials(const float* state, const float* table, float* partial,
-                                long long dim, long long chunk) {
-  __shared__ float shared[kReduceThreads];
-  const int p = blockIdx.y;
-  const float* re = state + (long long)p * 2 * dim;
-  const float* im = re + dim;
-  const long long begin = blockIdx.x * chunk;
-  float acc = 0.0f;
-  for (long long i = begin + threadIdx.x; i < begin + chunk; i += blockDim.x) {
-    const float r = re[i], m = im[i];
-    acc += (r * r + m * m) * table[i];
-  }
-  const float total = block_sum(acc, shared);
-  if (threadIdx.x == 0) partial[(long long)p * gridDim.x + blockIdx.x] = total;
-}
-
-__global__ void energy_finish(const float* partial, float* out, int n_partials) {
-  __shared__ float shared[kReduceThreads];
-  const float* row = partial + (long long)blockIdx.x * n_partials;
-  float acc = 0.0f;
-  for (int b = threadIdx.x; b < n_partials; b += blockDim.x) acc += row[b];
-  const float total = block_sum(acc, shared);
-  if (threadIdx.x == 0) out[blockIdx.x] = total;
-}
-
-__global__ void probabilities(const float* state, float* probs, long long dim) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= dim) return;
-  const float* re = state + (long long)blockIdx.y * 2 * dim;
-  const float r = re[i], m = re[dim + i];
-  probs[(long long)blockIdx.y * dim + i] = r * r + m * m;
 }
 
 // Probe angles of NFT step k: rows [0, P) shift the probed coordinate by
@@ -188,12 +136,6 @@ __global__ void sweep_update(float* current, float* z, const float* z13, const i
   z[p] = mid - sqrtf(d * d + half_diff * half_diff);
 }
 
-unsigned int blocks_for(long long count, int threads) {
-  return (unsigned int)((count + threads - 1) / threads);
-}
-
-long long reduce_chunk(long long dim) { return dim < kReduceChunk ? dim : kReduceChunk; }
-
 // Start every state from |0...0>, or state p from initial[p % init_pop],
 // then apply every (layer, slot) of the genome.
 cudaError_t run_circuit(float* state, const float* initial, int init_pop, int pop,
@@ -215,14 +157,6 @@ cudaError_t run_circuit(float* state, const float* initial, int init_pop, int po
     }
   }
   return cudaGetLastError();
-}
-
-void reduce_energies(const float* state, const float* table, float* partial, float* out,
-                     int pop, long long dim, cudaStream_t stream) {
-  const long long chunk = reduce_chunk(dim);
-  const int n_partials = (int)(dim / chunk);
-  energy_partials<<<dim3(n_partials, pop), kReduceThreads, 0, stream>>>(state, table, partial, dim, chunk);
-  energy_finish<<<pop, kReduceThreads, 0, stream>>>(partial, out, n_partials);
 }
 
 Genome make_genome(const int* gate_types, const int* controls, const float* angles,
@@ -275,7 +209,7 @@ int qt_population_probs(float* probs, float* work, const float* initial, const i
   const Genome g = make_genome(gate_types, controls, angles, layer_mask, pop, n_layers, n_qubits);
   cudaError_t err = run_circuit(work, initial, pop, pop, g, dim, s);
   if (err != cudaSuccess) return (int)err;
-  probabilities<<<dim3(blocks_for(dim, kPairThreads), pop), kPairThreads, 0, s>>>(work, probs, dim);
+  write_probabilities(work, probs, pop, dim, s);
   return (int)cudaGetLastError();
 }
 

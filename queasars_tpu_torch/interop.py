@@ -9,7 +9,9 @@ port's objects:
   tensors;
 - a diagonal energy table into a float32 device tensor;
 - an individual's genome in its plain-data form (:func:`individual_to_plain`)
-  into a port :class:`EVQEIndividual`.
+  into a port :class:`EVQEIndividual`;
+- a kron-fold pipeline's ten arrays (the JAX package's ``FoldPipeline``
+  fields, in order) into a port :class:`FoldPipeline`.
 
 :func:`individual_to_plain` reads only attributes that the JAX package's
 genome classes share with the port's, so it also turns a JAX individual into
@@ -31,6 +33,7 @@ from queasars_tpu_torch.genome.gates import (
 )
 from queasars_tpu_torch.genome.individual import EVQEIndividual
 from queasars_tpu_torch.genome.packing import PackedPopulation
+from queasars_tpu_torch.sim.fold_pipeline import FoldPipeline
 
 
 def packed_population_from_numpy(
@@ -118,3 +121,18 @@ def individual_from_plain(data: dict) -> EVQEIndividual:
         layers=layers,
         parameter_values=tuple(float(v) for v in data["parameter_values"]),
     )
+
+
+def fold_pipeline_from_numpy(arrays, device="cpu") -> FoldPipeline:
+    """A port :class:`FoldPipeline` on ``device`` from the ten pipeline
+    arrays in field order (the JAX package's ``FoldPipeline`` itself, or
+    ``tuple(pipeline)``).  Phases and factors become float32, every other
+    field int32."""
+    arrays = list(arrays)
+    if len(arrays) != len(FoldPipeline._fields):
+        raise ValueError(f"a fold pipeline has {len(FoldPipeline._fields)} arrays, got {len(arrays)}")
+    fields = {}
+    for name, array in zip(FoldPipeline._fields, arrays):
+        dtype = torch.float32 if name in ("factors", "diag_phase", "abs_phase") else torch.int32
+        fields[name] = torch.as_tensor(np.array(array), dtype=dtype, device=device).contiguous()
+    return FoldPipeline(**fields)

@@ -1,4 +1,4 @@
-"""Batched parameter optimizers (NFT) over the slot kernels."""
+"""Batched parameter optimizers (NFT) over the fold and slot kernels."""
 
 from queasars_tpu_torch.optim.nft import BatchedNFT, NFTConfig
 

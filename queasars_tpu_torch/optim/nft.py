@@ -1,11 +1,13 @@
 """Batched Nakanishi-Fujii-Todo (NFT) optimizer (PyTorch).
 
 Counterpart of ``queasars_tpu/optim/nft.py`` on the JAX package's production
-fused route (``use_pallas=True, use_mxu=False``): the whole population takes
-NFT steps in lock-step; a last-layer search simulates the frozen prefix once
-(states kernel) and runs the whole sweep from it (sweep kernel); a
-multi-slot parameter search re-enters every probe from its slot's cached
-prefix state (energies kernel).  On the card, steps only enqueue launches;
+fused route (``use_pallas=True``): the whole population takes NFT steps in
+lock-step; a last-layer search simulates the frozen prefix once (states
+kernel) and runs the whole sweep from it (sweep kernel); a multi-slot
+parameter search re-enters every probe from its slot's cached prefix state
+(energies kernel).  The probes take the kron-fold route (fold kernels) by
+default and the slot route under ``QUEASARS_MXU=0``, as in the reference
+(``optim/objective.py``).  On the card, steps only enqueue launches;
 results reach the host once per call.
 
 NFT math (arXiv:1903.12166, matching qiskit's ``nakanishi_fujii_todo``):
@@ -32,10 +34,20 @@ import torch
 
 from queasars_tpu_torch.genome.packing import PackedPopulation
 from queasars_tpu_torch.optim.nft_math import nft_three_point_update
-from queasars_tpu_torch.optim.objective import objective_operands, population_energies
-from queasars_tpu_torch.optim.prefix import prefix_mask
-from queasars_tpu_torch.optim.sweep_kernel_launch import nft_layer_sweep_launch
-from queasars_tpu_torch.sim import slot_kernels
+from queasars_tpu_torch.optim.objective import (
+    mxu_fold_enabled,
+    objective_operands,
+    population_energies,
+)
+from queasars_tpu_torch.optim.prefix import (
+    choose_prefix_engine,
+    prefix_mask,
+    simulate_prefix_states,
+)
+from queasars_tpu_torch.optim.sweep_kernel_launch import (
+    nft_layer_sweep_folded_launch,
+    nft_layer_sweep_launch,
+)
 from queasars_tpu_torch.sim.evaluators import packed_tensors
 
 
@@ -158,14 +170,22 @@ class BatchedNFT:
             ll = torch.as_tensor(last_layer, dtype=torch.long, device=device)
             out = ang.clone()
             if not operands["use_cvar"]:
-                out[rows, ll], energies = nft_layer_sweep_launch(
+                launch = (
+                    nft_layer_sweep_folded_launch
+                    if mxu_fold_enabled(None, n, path="sweep", device=device)
+                    else nft_layer_sweep_launch
+                )
+                out[rows, ll], energies = launch(
                     gt, ctrl, ang, lm, ll,
                     coords_t[:, :, 1:3].to(torch.int32).contiguous(), n_free_t, active_t,
                     operands["table"], n_qubits=n, maxiter=cfg.maxiter,
                     reset_interval=cfg.reset_interval, initial_state=initial,
                 )
             else:
-                prefix = slot_kernels.population_states(gt, ctrl, ang, prefix_mask(lm, ll), n, initial)
+                prefix = simulate_prefix_states(
+                    gt, ctrl, ang, prefix_mask(lm, ll), n, initial,
+                    mode=choose_prefix_engine(n, device),
+                )
                 layer_coords = coords_t.clone()
                 layer_coords[:, :, 0] = 0
                 objective = self._objective(
@@ -218,9 +238,10 @@ class BatchedNFT:
         active_t = torch.as_tensor(active, dtype=torch.bool, device=device)
         layers_t = torch.as_tensor(slot_layers, dtype=torch.long, device=device)
         z0 = torch.zeros(pop, dtype=torch.float32, device=device)
+        engine = choose_prefix_engine(n, device)
         for s in range(n_free.shape[1]):
-            prefix = slot_kernels.population_states(
-                gt, ctrl, ang, prefix_mask(lm, layers_t[:, s]), n, initial
+            prefix = simulate_prefix_states(
+                gt, ctrl, ang, prefix_mask(lm, layers_t[:, s]), n, initial, mode=engine
             )
             suffix = lm & ~prefix_mask(torch.ones_like(lm), layers_t[:, s])
             objective = self._objective(operands, n, gt, ctrl, suffix, prefix)

@@ -1,1 +1,1 @@
-"""Statevector engine, slot kernels, expectations and evaluators."""
+"""Statevector engine, slot and fold kernels, expectations and evaluators."""

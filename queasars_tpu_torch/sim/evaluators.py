@@ -2,7 +2,8 @@
 
 Counterpart of the exact part of ``queasars_tpu/sim/evaluators.py``
 (``BaseCircuitEvaluator``, ``StatevectorExpectationEvaluator``).  On the
-card every evaluation goes through the slot kernels (``sim/slot_kernels.py``):
+card every evaluation goes through the slot kernels (``sim/slot_kernels.py``),
+whichever route the optimizers take:
 plain expectations through the fused energies kernel, CVaR through the
 probabilities kernel; on the CPU the same wrappers run their plain versions.
 """
@@ -141,14 +142,16 @@ class StatevectorExpectationEvaluator(BaseCircuitEvaluator):
 
     def energies(self, gate_types, controls, angles, layer_mask, initial=None) -> torch.Tensor:
         """Energies [P] of device genome tensors, from ``initial`` states
-        when given, else from this evaluator's start state."""
+        when given, else from this evaluator's start state.  Always on the
+        slot kernels, as the reference's ``evaluate_packed`` is; the
+        optimizers' objectives take the fold route."""
         from queasars_tpu_torch.optim.objective import objective_operands, population_energies
 
         if initial is None:
             initial = self.initial_states(gate_types.shape[0])
         return population_energies(
             gate_types, controls, angles, layer_mask, n_qubits=self.n_qubits,
-            initial_state=initial, **objective_operands(self),
+            initial_state=initial, use_mxu=False, **objective_operands(self),
         )
 
     def evaluate_packed(self, packed, angles=None):

@@ -31,8 +31,6 @@ show that its main path went through the kernels.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 from queasars_tpu_torch.sim.statevector import probabilities, simulate_circuits
@@ -217,6 +215,8 @@ def nft_layer_sweep_plain(
     """Plain version of :func:`nft_layer_sweep` (same step rule: probes at
     +-pi/2, 3-point sinusoid update, z0 re-measured every
     ``reset_interval`` steps)."""
+    from queasars_tpu_torch.optim.nft_math import layer_sweep_plain
+
     pop = gate_types.shape[0]
     gt1, ctrl1 = gate_types[:, None, :], controls[:, None, :]
     mask1 = torch.ones((pop, 1), dtype=torch.bool, device=angles.device)
@@ -224,30 +224,7 @@ def nft_layer_sweep_plain(
     def energy(a):
         return energies_exact_plain(gt1, ctrl1, a[:, None], mask1, table, n_qubits, prefix)
 
-    current = angles.clone()
-    z = energy(current)
-    apply = active.bool() & (n_free > 0)
-    rows = torch.arange(pop, device=angles.device)
-    for k in range(maxiter):
-        if k > 0 and k % reset_interval == 0:
-            z = energy(current)
-        idx = torch.remainder(torch.full_like(n_free, k), n_free.clamp(min=1)).long()
-        q = coords[rows, idx, 0].long()
-        a = coords[rows, idx, 1].long()
-        theta = current[rows, q, a]
-        plus = current.clone()
-        plus[rows, q, a] = theta + math.pi / 2
-        minus = current.clone()
-        minus[rows, q, a] = theta - math.pi / 2
-        z1, z3 = energy(plus), energy(minus)
-        mid = (z1 + z3) * 0.5
-        half_diff = (z1 - z3) * 0.5
-        d = z - mid
-        shift = torch.atan2(half_diff, d)
-        minimum_value = mid - torch.sqrt(d * d + half_diff * half_diff)
-        current[rows, q, a] = torch.where(apply, theta + shift + math.pi, theta)
-        z = torch.where(apply, minimum_value, z)
-    return current, z
+    return layer_sweep_plain(energy, angles, coords, n_free, active, maxiter, reset_interval)
 
 
 def nft_layer_sweep(

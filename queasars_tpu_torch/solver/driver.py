@@ -32,7 +32,7 @@ from queasars_tpu_torch.genome.individual import EVQEIndividual
 from queasars_tpu_torch.genome.packing import PackedPopulation
 from queasars_tpu_torch.genome.population import EVQEPopulation
 from queasars_tpu_torch.paulis import PauliSum
-from queasars_tpu_torch.sim import slot_kernels
+from queasars_tpu_torch.optim.objective import population_probs
 from queasars_tpu_torch.sim.evaluators import (
     BaseCircuitEvaluator,
     StatevectorExpectationEvaluator,
@@ -290,12 +290,12 @@ class EvolvingAnsatzMinimumEigensolver:
     def _measure_eigenstate(
         self, individual: EVQEIndividual, evaluator: StatevectorExpectationEvaluator
     ) -> dict[int, float]:
-        """Exact measurement distribution of the best circuit (the
-        probabilities kernel on the card)."""
+        """Exact measurement distribution of the best circuit (a
+        probabilities kernel on the card, on the optimizers' route)."""
         packed = PackedPopulation.pack([individual])
-        probs = slot_kernels.population_probs(
+        probs = population_probs(
             *packed_tensors(packed, device=evaluator.device),
-            packed.n_qubits,
-            evaluator.initial_states(1),
+            n_qubits=packed.n_qubits,
+            initial_state=evaluator.initial_states(1),
         )[0]
         return quasi_distribution(probs.cpu().numpy())

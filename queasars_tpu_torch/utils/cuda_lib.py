@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``: the slot and
+the fold kernels).
 
 All sources are compiled by ONE ``nvcc`` call into a shared library with a
 plain C interface, loaded with ``ctypes``.  No PyTorch header is included,
@@ -45,6 +46,11 @@ SIGNATURES = {
     "qt_energies_exact": [_P] * 9 + [_I, _I, _I, _P],
     "qt_population_probs": [_P] * 7 + [_I, _I, _I, _P],
     "qt_nft_layer_sweep": [_P] * 14 + [_I] * 5 + [_P],
+    "qt_fold_states": [_P] * 12 + [_I] * 4 + [_P],
+    "qt_fold_probs": [_P] * 13 + [_I] * 4 + [_P],
+    "qt_fold_energies": [_P] * 15 + [_I] * 4 + [_P],
+    "qt_fold_pair_partials": [_I],
+    "qt_fold_nft_sweep": [_P] * 21 + [_I] * 6 + [_P],
 }
 
 
@@ -76,11 +82,13 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
+    """Where the library of the current sources (``*.cu`` and the headers
+    they include) and flags lives."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(SOURCE_DIR.glob("*.cu*")):
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    return BUILD_DIR / f"libqueasars_slot_kernels_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libqueasars_kernels_{digest.hexdigest()[:16]}.so"
 
 
 def build() -> BuildInfo:

@@ -3,10 +3,12 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 tools/profile_port_solve.py [--repeats 3]
+    python3 tools/profile_port_solve.py [--route fold|slot] [--repeats 3]
 
 Runs the 20-qubit JSSP solve of config 4 (the one ``chip_smoke.py``
-drives) once to build and warm up, then ``--repeats`` timed solves, each
+drives) on one route -- ``fold`` (the default, ``QUEASARS_MXU`` unset) or
+``slot`` (``QUEASARS_MXU=0``) -- once to build and warm up, then
+``--repeats`` timed solves, each
 with every EVQE operator timed on the host clock (synchronised), then one
 solve under ``torch.profiler`` for the device time by kernel and the
 device's busy share.  Prints the card's name and power limit first and a
@@ -49,6 +51,7 @@ def timed_operators(solver, totals):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--route", choices=("fold", "slot"), default="fold")
     parser.add_argument("--repeats", type=int, default=3)
     args = parser.parse_args(argv)
     import torch
@@ -61,8 +64,7 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(card, flush=True)
-    from queasars_tpu_torch.sim import slot_kernels as sk
-
+    chip_smoke.use_route(args.route)
     _, _, hamiltonian = chip_smoke.jssp_with_qubits(3, 3, 6, 20, {1: 0.5, 2: 0.5})
     chip_smoke.config4_solver().compute_minimum_eigenvalue(hamiltonian)  # build + warm-up
 
@@ -71,7 +73,7 @@ def main(argv=None) -> int:
         totals = defaultdict(float)
         solver = chip_smoke.config4_solver()
         timed_operators(solver, totals)
-        sk.reset_launch_counts()
+        chip_smoke.reset_launch_counts()
         torch.cuda.synchronize()
         start = time.perf_counter()
         result = solver.compute_minimum_eigenvalue(hamiltonian)
@@ -80,7 +82,7 @@ def main(argv=None) -> int:
         evals = int(sum(result.circuit_evaluations))
         runs.append({
             "wall_s": wall, "evaluations": evals, "evals_per_s": evals / wall,
-            "operators_s": dict(totals), "launches": dict(sk.launch_counts),
+            "operators_s": dict(totals), "launches": chip_smoke.launch_counts(),
             "eigenvalue": result.eigenvalue,
         })
         print(json.dumps(runs[-1]), flush=True)
@@ -105,7 +107,8 @@ def main(argv=None) -> int:
     for key, (ms, count) in top:
         print(f"  {ms:10.2f} ms  {count:7d} calls  {key[:90]}", flush=True)
     summary = {
-        "card": card, "runs": runs, "profiled_wall_s": wall, "device_busy_ms": device_ms,
+        "card": card, "route": args.route, "runs": runs, "profiled_wall_s": wall,
+        "device_busy_ms": device_ms,
         "device_busy_share": device_ms / (wall * 1e3),
         "top_kernels_ms": {key[:60]: ms for key, (ms, _) in top},
     }
