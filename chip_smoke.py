@@ -16,13 +16,28 @@ Phases, each printing one flushed progress line with elapsed seconds:
 4. fold kernels at the same shapes: every fold kernel against its plain
    version, the fold energies against the slot energies (the two routes
    compute one function), equal bits from equal inputs, timings;
-5. solve, slot route (``QUEASARS_MXU=0``): the 20-qubit 3x3 JSSP instance
+5. sampled kernels at the same shapes with 512 shots (threefry uniforms,
+   ``queasars_tpu_torch/utils/prng.py``), from |0...0> and from prefix
+   states: each against its plain version and the fold sampler against the
+   slot sampler (equal draws, every other draw a boundary draw), equal bits
+   on a repeat, the mean shot energy against the exact energy; the
+   epilogue alone beside ``torch.cumsum`` + ``torch.searchsorted``; then
+   ``bench.py``'s sampler shape (P=32, 5 layers, 512 terms, CVaR 0.5)
+   through the objective on each route;
+6. solve, slot route (``QUEASARS_MXU=0``): the 20-qubit 3x3 JSSP instance
    under the repository's config 4 (population 16, NFT maxiter 30, 4
    generations, ``pack_min_layers=6``, seed 0) through
    ``EVQEMinimumEigensolver.compute_minimum_eigenvalue``, with every
    kernel's launch count over that solve, then two checks of its result;
-6. solve, fold route (``QUEASARS_MXU`` unset, the JAX package's default):
-   the same solve and checks; the fold kernels must carry it.
+7. solve, fold route (``QUEASARS_MXU`` unset, the JAX package's default):
+   the same solve and checks; the fold kernels must carry it;
+8. config 3 per route (slot, then fold): the 18-qubit 3x3 JSSP instance
+   with a 512-shot sampler (seed 0), CVaR 0.5, tournament selection of size
+   2 (experiments/exp_baseline_configs.py:128-141); the route's sampled
+   kernel must carry it, its best bitstring's table energy must be the
+   Hamiltonian's, its final distribution must hold 512 shots and its
+   eigenvalue lie within 5 sigma / sqrt(alpha * shots) of the best
+   individual's exact CVaR.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -46,6 +61,10 @@ N_QUBITS = 20
 DEVICE = "cuda"
 #: the repository's config 4 (experiments/exp_baseline_configs.py)
 SOLVE = dict(population=16, maxiter=30, generations=4, pack_min_layers=6, seed=0)
+#: the repository's config 3: its solve settings and its sampler
+CONFIG3 = dict(SOLVE, qubits=18, shots=512, sampler_seed=0, alpha=0.5, tournament_size=2)
+#: shots and key seed of the sampled-kernel phase
+SAMPLED = dict(shots=512, seed=3)
 #: bench.py's workload for population energies
 BENCH = dict(population=32, layers=5, terms=512)
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s outside
@@ -55,6 +74,7 @@ PEAK_FP32_FLOPS = 67e12
 FLOPS_PER_PAIR = 28  # one complex 2x2 matvec on an amplitude pair
 FLOPS_PER_AMPLITUDE_ENERGY = 5  # (re^2 + im^2) * table, accumulated
 FLOPS_PER_AMPLITUDE_PROB = 3
+FLOPS_PER_AMPLITUDE_SAMPLE = 4  # |psi|^2 and one add of the running sum
 SLOT_SOURCE = "queasars_tpu_torch/csrc/slot_kernels.cu"
 FOLD_SOURCE = "queasars_tpu_torch/csrc/fold_kernels.cu"
 #: kernel -> (source, the TPU kernel it replaces)
@@ -67,6 +87,9 @@ KERNELS = {
     "population_states_folded": (FOLD_SOURCE, "queasars_tpu/sim/pallas_fold_kernels.py:1195"),
     "nft_layer_sweep_folded": (FOLD_SOURCE, "queasars_tpu/sim/pallas_fold_kernels.py:1623"),
     "population_probs_folded": (FOLD_SOURCE, "queasars_tpu/sim/pallas_fold_kernels.py:699"),
+    "sampled_shot_indices": (SLOT_SOURCE, "queasars_tpu/sim/pallas_kernels.py:660"),
+    "sampled_shot_indices_folded": (
+        FOLD_SOURCE, "queasars_tpu/sim/pallas_fold_kernels.py:795"),
 }
 #: the kernels each solve route must launch (the folded probabilities
 #: kernel carries the fold route's final measurement distribution)
@@ -74,6 +97,12 @@ ROUTE_KERNELS = {
     "slot": ("energies_exact", "population_states", "nft_layer_sweep", "population_probs"),
     "fold": ("energies_exact_folded", "population_states_folded", "nft_layer_sweep_folded",
              "population_probs_folded"),
+}
+#: the kernels config 3 must launch on each route (prefix states come from
+#: the slot states kernel at n=18 on both, as in the reference)
+SAMPLER_ROUTE_KERNELS = {
+    "slot": ("sampled_shot_indices", "population_states", "population_probs"),
+    "fold": ("sampled_shot_indices_folded", "population_states", "population_probs_folded"),
 }
 
 
@@ -226,6 +255,27 @@ def check_close(name, got, want, tol, records, key=None):
     return err
 
 
+def draw_agreement(probs, u_frac, got, want, rel=1e-5):
+    """(share of equal draws, number of differing draws that are not
+    boundary draws) of two samplers' indices [P, S] at the uniforms
+    ``u_frac`` [P, S].  A differing draw is a boundary draw when
+    ``u = frac * total`` lies within ``rel * total`` of the running sum
+    (float64, from ``probs`` [P, 2^n]) at both ends of the gap between
+    the two indices: a rounding-level flip into the neighbouring bin."""
+    import torch
+
+    same = got == want
+    cdf = torch.cumsum(probs.double(), dim=-1)
+    total = cdf[:, -1:]
+    u = u_frac.double() * total
+    lo = torch.minimum(got, want).long()
+    hi = torch.maximum(got, want).long()
+    off = torch.maximum((u - cdf.gather(1, lo)).abs(),
+                        (u - cdf.gather(1, (hi - 1).clamp(min=0))).abs())
+    bad = ~same & (off > rel * total)
+    return float(same.double().mean()), int(bad.sum())
+
+
 def fold_flops(pipeline, n_qubits) -> float:
     """FLOPs of the fold kernels' own group products for a pipeline: 8 per
     complex multiply-add, 2^n * S of them per active group and individual
@@ -303,9 +353,18 @@ class Workload:
         bgt, _, _, bmask = self.bench
         bench = bound(genome_bytes(bgt, bmask) + 4 * dim + 4 * bgt.shape[0],
                       circuit_flops(bgt, bmask, n) + FLOPS_PER_AMPLITUDE_ENERGY * dim * bgt.shape[0])
+        # sampled shots from |0>: genome, uniforms and indices once
+        shots = SAMPLED["shots"]
+        sampled = bound(genome_bytes(gt, mask) + 8 * pop * shots,
+                        circuit_flops(gt, mask, n) + FLOPS_PER_AMPLITUDE_SAMPLE * dim * pop)
+        bench_sampled = bound(
+            genome_bytes(bgt, bmask) + 4 * dim + 8 * bgt.shape[0] * shots,
+            circuit_flops(bgt, bmask, n) + FLOPS_PER_AMPLITUDE_SAMPLE * dim * bgt.shape[0])
         out = {"population_states": states, "energies_exact": energies,
-               "population_probs": probs, "nft_layer_sweep": sweep, "bench": bench}
-        out.update({f"{k}_folded": v for k, v in list(out.items()) if k != "bench"})
+               "population_probs": probs, "nft_layer_sweep": sweep,
+               "sampled_shot_indices": sampled}
+        out.update({f"{k}_folded": v for k, v in list(out.items())})
+        out.update(bench=bench, bench_sampled=bench_sampled)
         return out
 
 
@@ -505,6 +564,163 @@ def phase_fold_kernels(w):
     return finish_records(records, bounds)
 
 
+def float64_probs(gt, ctrl, ang, mask, n_qubits, initial=None):
+    """Probabilities of the slot engine's circuits in float64 (the plain
+    engine's gate passes on float64 planes): the reference that shows how
+    far float32 rounding alone moves a draw."""
+    import torch
+
+    from queasars_tpu_torch.sim.statevector import _apply_slot
+
+    pop = gt.shape[0]
+    if initial is None:
+        state = torch.zeros((pop, 2, 1 << n_qubits), dtype=torch.float64, device=ang.device)
+        state[:, 0, 0] = 1.0
+    else:
+        state = initial.double()
+    for layer in range(gt.shape[1]):
+        for q in range(n_qubits):
+            state = _apply_slot(state, q, gt[:, layer, q], ctrl[:, layer, q],
+                                ang[:, layer, q].double(), mask[:, layer], n_qubits)
+    return state[:, 0] ** 2 + state[:, 1] ** 2
+
+
+def phase_sampled_kernels(w):
+    """Both sampled kernels against their plain versions and each other at
+    n=20 with 512 shots, from |0...0> and from prefix states; the epilogue
+    alone; bench.py's sampler shape through the objective on each route.
+
+    Bars: every differing draw must be a boundary draw (u within 1e-5 of
+    the total mass of the running sum at the gap); the slot sampler must
+    agree with its plain version on at least 99% of draws (its circuit
+    rounds as the plain one does); a comparison with the fold sampler on at
+    least 97.5%: two float32 circuits of these dense 20-qubit states move
+    1.3-1.9% of draws across a bin boundary whatever computes them (each
+    plain version against the float64 state, printed here: 98.2-98.7%)."""
+    import torch
+
+    from queasars_tpu_torch.optim.objective import population_energies
+    from queasars_tpu_torch.sim import fold_kernels as fk
+    from queasars_tpu_torch.sim import slot_kernels as sk
+    from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
+    from queasars_tpu_torch.sim.sampling import hierarchical_sample_plain
+    from queasars_tpu_torch.utils import prng
+
+    n, table, shots = N_QUBITS, w.table, SAMPLED["shots"]
+    names = ("sampled_shot_indices", "sampled_shot_indices_folded")
+    records = {name: {} for name in names}
+    bounds = w.bounds()
+    gt, ctrl, ang, mask, pmask, smask = w.gt, w.ctrl, w.ang, w.mask, w.pmask, w.smask
+    keys = prng.split(prng.PRNGKey(SAMPLED["seed"]), w.pop)
+    frac = prng.uniform(keys, (shots,)).to(DEVICE)
+    prefix = sk.population_states(gt, ctrl, ang, pmask, n)
+
+    def check_draws(label, probs, got, want, bar, key=None):
+        share, not_boundary = draw_agreement(probs, frac, got, want)
+        err = float((table[got.long()].mean(1) - table[want.long()].mean(1)).abs().max())
+        say(f"  {label}: {share:.4%} of draws equal (bar {bar:.1%}), {not_boundary} differing "
+            f"draws off a boundary, mean shot energy differs by at most {err:.3e}")
+        require(share >= bar, f"{label}: only {share:.4%} of draws agree")
+        require(not_boundary == 0, f"{label}: {not_boundary} differing draws are not boundary draws")
+        if key is not None:
+            records[key]["max_abs_err"] = max(records[key].get("max_abs_err", 0.0), err)
+
+    for label, m, start in (("from |0>", mask, None), ("from prefix", smask, prefix)):
+        pipe = build_fold_pipeline(gt, ctrl, ang, m, n, absorb_diag=True)
+        probs = sk.population_probs_plain(gt, ctrl, ang, m, n, start)
+        slot = sk.sampled_shot_indices(gt, ctrl, ang, m, frac, n, start)
+        fold = fk.sampled_shot_indices_folded(pipe, frac, n, start)
+        require(torch.equal(slot, sk.sampled_shot_indices(gt, ctrl, ang, m, frac, n, start)),
+                "the slot sampler gives other bits for equal inputs")
+        require(torch.equal(fold, fk.sampled_shot_indices_folded(pipe, frac, n, start)),
+                "the fold sampler gives other bits for equal inputs")
+        slot_plain = sk.sampled_shot_indices_plain(gt, ctrl, ang, m, frac, n, start)
+        fold_plain = fk.sampled_shot_indices_folded_plain(pipe, frac, n, start)
+        check_draws(f"sampled_shot_indices {label} vs plain", probs, slot, slot_plain, 0.99,
+                    "sampled_shot_indices")
+        check_draws(f"sampled_shot_indices_folded {label} vs plain", probs, fold, fold_plain,
+                    0.975, "sampled_shot_indices_folded")
+        check_draws(f"sampled_shot_indices_folded {label} vs slot sampler", probs, fold, slot,
+                    0.975)
+        exact64 = float64_probs(gt, ctrl, ang, m, n, start)
+        truth = hierarchical_sample_plain(exact64, frac.double())
+        say(f"  float64 state {label}: the float32 plain versions' draws equal its draws on "
+            f"{float((slot_plain == truth).double().mean()):.4%} (slot) and "
+            f"{float((fold_plain == truth).double().mean()):.4%} (fold); the kernels' on "
+            f"{float((slot == truth).double().mean()):.4%} and "
+            f"{float((fold == truth).double().mean()):.4%}")
+        # the mean shot energy within 5 standard errors of the exact energy
+        exact = probs @ table
+        stderr = torch.sqrt((probs @ table**2 - exact**2).clamp(min=0) / shots)
+        for name, idx in (("slot", slot), ("fold", fold)):
+            z = ((table[idx.long()].mean(1) - exact) / stderr.clamp(min=1e-12)).abs().max()
+            say(f"  {name} sampler {label}: mean shot energy within {float(z):.2f} standard "
+                f"errors of the exact energy")
+            require(float(z) < 5, f"the {name} sampler's mean is {float(z):.2f} standard errors off")
+        if start is None:
+            records["sampled_shot_indices"].update(
+                ms=time_ms(lambda: sk.sampled_shot_indices(gt, ctrl, ang, m, frac, n), 5),
+                plain_ms=time_ms(
+                    lambda: sk.sampled_shot_indices_plain(gt, ctrl, ang, m, frac, n), 2),
+            )
+            records["sampled_shot_indices_folded"].update(
+                ms=time_ms(lambda: fk.sampled_shot_indices_folded(pipe, frac, n), 5),
+                plain_ms=time_ms(lambda: fk.sampled_shot_indices_folded_plain(pipe, frac, n), 2),
+            )
+        else:
+            slot_ms = time_ms(lambda: sk.sampled_shot_indices(gt, ctrl, ang, m, frac, n, start), 5)
+            fold_ms = time_ms(lambda: fk.sampled_shot_indices_folded(pipe, frac, n, start), 5)
+            say(f"  sampled from prefix (the searches' shape): slot {slot_ms:.3f} ms, "
+                f"fold {fold_ms:.3f} ms")
+
+    # the epilogue alone, beside the two-call flat sampler on the same
+    # probabilities (torch.cumsum then torch.searchsorted)
+    states = sk.population_states(gt, ctrl, ang, mask, n)
+    probs = states[:, 0] ** 2 + states[:, 1] ** 2
+    require(torch.equal(sk.sample_planes(states, frac, n), sk.sample_planes_plain(states, frac, n)),
+            "the sampler epilogue disagrees with its plain version on equal planes")
+    epilogue_ms = time_ms(lambda: sk.sample_planes(states, frac, n), 10)
+
+    def flat():
+        cdf = torch.cumsum(probs, dim=-1)
+        return torch.searchsorted(cdf, frac * cdf[:, -1:], right=True)
+
+    flat_ms = time_ms(flat, 10)
+    say(f"  sampler epilogue alone [{w.pop},2^{n}] x {shots}: {epilogue_ms:.3f} ms; "
+        f"torch.cumsum + torch.searchsorted (two calls) on the same probabilities: "
+        f"{flat_ms:.3f} ms")
+
+    # bench.py's sampler shape: 512-shot CVaR-0.5 population energies
+    bgt, bctrl, bang, bmask = w.bench
+    btable = w.bench_table
+    bkeys = prng.split(prng.PRNGKey(0), bgt.shape[0])
+    border = torch.argsort(btable, stable=True)
+    bfrac = prng.uniform(bkeys, (shots,)).to(DEVICE)
+    bprobs = sk.population_probs_plain(bgt, bctrl, bang, bmask, n)
+    bslot = sk.sampled_shot_indices(bgt, bctrl, bang, bmask, bfrac, n)
+    share, not_boundary = draw_agreement(
+        bprobs, bfrac, bslot, sk.sampled_shot_indices_plain(bgt, bctrl, bang, bmask, bfrac, n))
+    say(f"  bench shape slot sampler vs plain: {share:.4%} of draws equal (bar 99.0%), "
+        f"{not_boundary} off a boundary")
+    require(share >= 0.99 and not_boundary == 0, "the bench-shape slot sampler disagrees")
+    energies = {}
+    for route, use_mxu in (("slot", False), ("fold", True)):
+        def objective(use_mxu=use_mxu):
+            return population_energies(
+                bgt, bctrl, bang, bmask, btable, btable[border], border, 0.5, bkeys,
+                n_qubits=n, use_cvar=True, shots=shots, use_shots=True, use_mxu=use_mxu)
+
+        energies[route] = objective()
+        require(bool(torch.isfinite(energies[route]).all()), "bench-shape energies not finite")
+        bench_ms = time_ms(objective, 5)
+        say(f"  bench shape [{bgt.shape[0]}, L={bgt.shape[1]}] 512-shot CVaR-0.5 energies, "
+            f"{route} route: {bench_ms:.3f} ms (bound {bounds['bench_sampled'][0]:.3f} ms, "
+            f"{bounds['bench_sampled'][1]})")
+    gap = float((energies["slot"] - energies["fold"]).abs().max())
+    say(f"  bench shape CVaR energies, fold vs slot route: max difference {gap:.3e}")
+    return finish_records(records, bounds)
+
+
 class _GenerationClock:
     """A termination criterion that never terminates and records when each
     generation's evaluation finished."""
@@ -550,6 +766,41 @@ def config4_solver(clock=None):
         topological_search_probability=0.4,
         layer_removal_probability=0.05,
         pack_min_layers=SOLVE["pack_min_layers"],
+        device=DEVICE,
+    ))
+
+
+def config3_solver(clock=None):
+    """The EVQE solver of the repository's config 3
+    (experiments/exp_baseline_configs.py:64-83, 128-141) on the card: a
+    512-shot sampler, no estimator, CVaR 0.5, tournament selection."""
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.solver import (
+        ConfiguredSampler,
+        EVQEMinimumEigensolver,
+        EVQEMinimumEigensolverConfiguration,
+    )
+
+    return EVQEMinimumEigensolver(EVQEMinimumEigensolverConfiguration(
+        configured_estimator=None,
+        configured_sampler=ConfiguredSampler(shots=CONFIG3["shots"], seed=CONFIG3["sampler_seed"]),
+        optimizer=BatchedNFT(NFTConfig(maxiter=CONFIG3["maxiter"])),
+        optimizer_n_circuit_evaluations=None,
+        max_generations=CONFIG3["generations"],
+        max_circuit_evaluations=None,
+        termination_criterion=clock,
+        random_seed=CONFIG3["seed"],
+        population_size=CONFIG3["population"],
+        speciation_genetic_distance_threshold=2,
+        selection_alpha_penalty=0.1,
+        selection_beta_penalty=0.1,
+        parameter_search_probability=0.25,
+        topological_search_probability=0.4,
+        layer_removal_probability=0.05,
+        use_tournament_selection=True,
+        tournament_size=CONFIG3["tournament_size"],
+        distribution_alpha_tail=CONFIG3["alpha"],
+        pack_min_layers=CONFIG3["pack_min_layers"],
         device=DEVICE,
     ))
 
@@ -631,6 +882,76 @@ def phase_solve(route, seed, encoder, hamiltonian, table):
     return launches
 
 
+def phase_sampler_solve(route, seed, encoder, hamiltonian):
+    """Config 3 on one route; returns that run's launch counts."""
+    import numpy as np
+    import torch
+
+    from queasars_tpu_torch.genome import PackedPopulation
+    from queasars_tpu_torch.optim.objective import population_probs
+    from queasars_tpu_torch.paulis import diagonal_energy_table
+    from queasars_tpu_torch.sim.evaluators import packed_tensors
+    from queasars_tpu_torch.sim.expectation import cvar_expectation_from_probs
+
+    use_route(route)
+    n = hamiltonian.n_qubits
+    table = diagonal_energy_table(hamiltonian, dtype=torch.float32, device=DEVICE)
+    solver = config3_solver(_GenerationClock())
+    reset_launch_counts()
+    start = time.perf_counter()
+    result = solver.compute_minimum_eigenvalue(hamiltonian)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = launch_counts()
+    evals = int(sum(result.circuit_evaluations))
+    best_state = max(result.eigenstate, key=result.eigenstate.get)
+    say(f"phase config 3 ({route} route): instance seed {seed}, {n} qubits, "
+        f"{result.generations} generations in {seconds:.2f} s, {evals} evaluations "
+        f"({evals / seconds:.1f}/s), eigenvalue {result.eigenvalue:.6f}, best bitstring "
+        f"{format(best_state, f'0{n}b')} (p={result.eigenstate[best_state]:.4f})")
+    say(f"  launches over the solve: {launches}")
+    require(result.generations == CONFIG3["generations"], "the sampler solve stopped early")
+    for name in SAMPLER_ROUTE_KERNELS[route]:
+        require(launches[name] > 0, f"kernel {name} was not launched by config 3 on the {route} route")
+    other = "slot" if route == "fold" else "fold"
+    require(launches[SAMPLER_ROUTE_KERNELS[other][0]] == 0,
+            f"the {other} route's sampler ran on the {route} route")
+
+    # check 1: the best bitstring's table energy is the Hamiltonian's value
+    # there (host, float64); it decodes to a schedule, valid or not: four
+    # generations of config 3 end on penalty energies, as the JAX package's
+    # own run of it does (docs/performance.md:449, E = 96.5881)
+    coeffs = hamiltonian.coeffs.real
+    parity = np.array([bin(int(z) & best_state).count("1") & 1 for z in hamiltonian.z_masks_lo64()])
+    host_value = float(np.sum(coeffs * (1.0 - 2.0 * parity)))
+    table_value = float(table[best_state])
+    schedule = encoder.translate_result_state(best_state)
+    say(f"  check bitstring: table {table_value:.6f} vs host {host_value:.6f}; schedule "
+        f"valid={schedule.is_valid} makespan={schedule.makespan}")
+    require(abs(table_value - host_value) <= 1e-5 * float(table.abs().max()),
+            "table energy disagrees with the Hamiltonian")
+    # check 2: the final distribution holds the sampler's shots
+    counts = np.array(list(result.eigenstate.values())) * CONFIG3["shots"]
+    say(f"  check distribution: {counts.sum():.6f} shots over {len(counts)} states")
+    require(abs(counts.sum() - CONFIG3["shots"]) < 1e-6 and np.allclose(counts, np.round(counts)),
+            "the final distribution does not hold the sampler's shots")
+    # check 3: the eigenvalue against the best individual's exact CVaR
+    packed = PackedPopulation.pack([result.best_individual])
+    probs = population_probs(*packed_tensors(packed, device=DEVICE), n_qubits=n)[0].double()
+    table64 = table.double()
+    order = torch.argsort(table64, stable=True)
+    alpha = CONFIG3["alpha"]
+    exact = float(cvar_expectation_from_probs(probs, table64[order], order, alpha))
+    mean = float(probs @ table64)
+    sigma = float(torch.sqrt((probs @ table64**2 - mean**2).clamp(min=0)))
+    limit = 5 * sigma / np.sqrt(alpha * CONFIG3["shots"])
+    say(f"  check eigenvalue: solver {result.eigenvalue:.6f} vs exact CVaR-{alpha} "
+        f"{exact:.6f} (|difference| {abs(result.eigenvalue - exact):.6f}, limit {limit:.6f})")
+    require(np.isfinite(result.eigenvalue), "eigenvalue is not finite")
+    require(abs(result.eigenvalue - exact) <= limit, "eigenvalue is off the exact CVaR")
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     try:
@@ -664,10 +985,17 @@ def main() -> int:
         records.update(phase_fold_kernels(workload))
         say("phase fold kernels: all four fold kernels agree with their plain versions "
             "and the slot route")
+        records.update(phase_sampled_kernels(workload))
+        say("phase sampled kernels: both sampled kernels agree with their plain versions "
+            "and with each other")
         launches = {}
         for route in ROUTE_KERNELS:
             counts = phase_solve(route, seed, encoder, hamiltonian, table)
             launches.update({name: counts[name] for name in ROUTE_KERNELS[route]})
+        seed3, encoder3, hamiltonian3 = jssp_with_qubits(3, 3, 5, CONFIG3["qubits"], 1)
+        for route, route_kernels in SAMPLER_ROUTE_KERNELS.items():
+            counts = phase_sampler_solve(route, seed3, encoder3, hamiltonian3)
+            launches[route_kernels[0]] = counts[route_kernels[0]]
     except Failure as failure:
         say(f"FAILED: {failure}")
         return 1

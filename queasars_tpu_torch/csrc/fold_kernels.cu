@@ -1,13 +1,13 @@
 // Kron-fold circuit kernels for Hopper (sm_90a) behind a plain C interface.
 //
-// Counterparts of the four fold kernels of queasars_tpu/sim/
+// Counterparts of the five fold kernels of queasars_tpu/sim/
 // pallas_fold_kernels.py (pallas_energies_exact_folded,
 // pallas_population_states_folded, pallas_nft_layer_sweep_folded,
-// pallas_population_probs_folded).  Built with the slot kernels by one nvcc
-// call and bound with ctypes (queasars_tpu_torch/utils/cuda_lib.py); every
-// entry point takes raw device pointers plus the caller's stream, launches on
-// that stream, never synchronises, allocates nothing and returns
-// cudaGetLastError().
+// pallas_population_probs_folded, pallas_sampled_shot_energies_folded).
+// Built with the slot kernels by one nvcc call and bound with ctypes
+// (queasars_tpu_torch/utils/cuda_lib.py); every entry point takes raw device
+// pointers plus the caller's stream, launches on that stream, never
+// synchronises, allocates nothing and returns cudaGetLastError().
 //
 // Input: the FoldPipeline tensors of queasars_tpu_torch/sim/fold_pipeline.py
 // read as they are (no packing): a circuit is L+1 kron layers of per-qubit
@@ -32,8 +32,12 @@
 //     at n=20, S=128), not bytes (two passes over 16 MB per group).
 //   * diagonal pass: one thread per amplitude applies the layer's compacted
 //     CDiag phases where the control bit is set (bytes-bound).
-//   * epilogues: probabilities, the planes themselves, or the energy through
-//     the fixed-order two-pass reduction of common.cuh (no float atomics).
+//   * epilogues: probabilities, the planes themselves, the energy through
+//     the fixed-order two-pass reduction of common.cuh (no float atomics), or
+//     sampled shot indices through the hierarchical inverse CDF of
+//     sampler.cuh.  The TPU ran its sampled kernel at single-pass bf16
+//     (precision="default"); here it runs in fp32 like every fold kernel,
+//     closer to the exact state.
 //   * NFT sweep: the step loop runs on the host side of this library and only
 //     enqueues launches.  Per step: BASE = REST . prefix (the swept layer with
 //     the probed qubit's factors and CDiag slot replaced by the identity), nine
@@ -48,6 +52,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "sampler.cuh"
 
 namespace {
 
@@ -555,6 +560,29 @@ int qt_fold_energies(float* out, float* work, float* partial, const float* initi
   if (err != cudaSuccess) return (int)err;
   reduce_energies(work, table, partial, out, pop, 1LL << n_qubits, s);
   return (int)cudaGetLastError();
+}
+
+// Replaces pallas_sampled_shot_energies_folded (pallas_fold_kernels.py:795)
+// up to its energy gather: sampled indices out [P, S] at the uniforms u_frac
+// [P, S] after each pipeline's circuit from |0...0> or initial [P, 2, 2^n]
+// (null = |0...0>); 14 <= n <= 21.  work [P, 2, 2^n] and scratch
+// [P, qt_sampler_scratch(n)] are scratch.
+int qt_sampled_shot_indices_folded(int* out, float* work, float* scratch, const float* u_frac,
+                                   const float* initial, const float* factors,
+                                   const int* diag_ctrl, const int* diag_tgt,
+                                   const float* diag_phase, const int* diag_count,
+                                   const int* group_active, const int* abs_ctrl,
+                                   const int* abs_tgt, const float* abs_phase,
+                                   const int* abs_count, int pop, int n_kron, int n_qubits,
+                                   int d_slots, int shots, void* stream) {
+  if (n_qubits < 14 || n_qubits > 21) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Fold f = make_fold(factors, diag_ctrl, diag_tgt, diag_phase, diag_count, group_active,
+                           abs_ctrl, abs_tgt, abs_phase, abs_count, n_kron, n_qubits, d_slots);
+  cudaError_t err = run_folded(work, initial, pop, f, s);
+  if (err != cudaSuccess) return (int)err;
+  err = sample_planes(work, u_frac, scratch, out, pop, n_qubits, shots, s);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // First-pass blocks of the sweep's pair sums per individual.

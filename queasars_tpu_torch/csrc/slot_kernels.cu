@@ -1,8 +1,8 @@
 // Slot-circuit kernels for Hopper (sm_90a) behind a plain C interface.
 //
-// Counterparts of the four slot kernels of queasars_tpu/sim/pallas_kernels.py
+// Counterparts of the five slot kernels of queasars_tpu/sim/pallas_kernels.py
 // (pallas_energies_exact, pallas_population_states, pallas_nft_layer_sweep,
-// pallas_population_probs).  Built by one nvcc call into a shared library and
+// pallas_population_probs, pallas_sampled_shot_energies).  Built by one nvcc call into a shared library and
 // bound with ctypes (queasars_tpu_torch/utils/cuda_lib.py); every entry point
 // takes raw device pointers plus the caller's stream, launches on that stream,
 // never synchronises, allocates nothing and returns cudaGetLastError().
@@ -31,10 +31,13 @@
 //     (+pi/2 and -pi/2) are batched as 2P copies of the prefix, the layer is
 //     applied, both energies are reduced, and one thread per individual runs
 //     the 3-point update with atan2f.
+//   * sampled shots: the circuit as above, then the hierarchical inverse-CDF
+//     epilogue of sampler.cuh on the planes in device memory.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "sampler.cuh"
 
 namespace {
 
@@ -54,8 +57,19 @@ struct Genome {
   int n_qubits;
 };
 
+// ((a0 b0 + a1 b1) + a2 b2) + a3 b3 with every product and sum rounded on its
+// own (no FMA contraction): the plain version's order of operations
+// (sim/statevector.py::_apply_slot), so on the card a slot state equals its
+// plain version's bit for bit.
+__device__ __forceinline__ float sum4(float a0, float b0, float a1, float b1, float a2,
+                                      float b2, float a3, float b3) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)), __fmul_rn(a2, b2)),
+                   __fmul_rn(a3, b3));
+}
+
 // Semantics of _apply_u3_slot (pallas_kernels.py:55-115) with the U3 entries
-// of _u3_entries (:44-52).
+// of _u3_entries (:44-52), computed with sinf/cosf as the plain version's
+// torch.sin/torch.cos compute them on the card.
 __global__ void apply_slot(float* state, Genome g, int layer, int q, long long dim) {
   const int p = blockIdx.y;
   const int gi = p % g.genome_pop;
@@ -74,23 +88,20 @@ __global__ void apply_slot(float* state, Genome g, int layer, int q, long long d
   const int ai = p % g.angle_pop;
   const float* a = g.angles + (((long long)ai * g.n_layers + layer) * g.n_qubits + q) * 3;
   const float theta = a[0], phi = a[1], lam = a[2];
-  float sin_t, cos_t, sin_l, cos_l, sin_p, cos_p, sin_pl, cos_pl;
-  sincosf(theta * 0.5f, &sin_t, &cos_t);
-  sincosf(lam, &sin_l, &cos_l);
-  sincosf(phi, &sin_p, &cos_p);
-  sincosf(phi + lam, &sin_pl, &cos_pl);
+  const float sin_t = sinf(theta * 0.5f), cos_t = cosf(theta * 0.5f);
+  const float pl = __fadd_rn(phi, lam);
   const float u00r = cos_t, u00i = 0.0f;
-  const float u01r = -cos_l * sin_t, u01i = -sin_l * sin_t;
-  const float u10r = cos_p * sin_t, u10i = sin_p * sin_t;
-  const float u11r = cos_pl * cos_t, u11i = sin_pl * cos_t;
+  const float u01r = -cosf(lam) * sin_t, u01i = -sinf(lam) * sin_t;
+  const float u10r = cosf(phi) * sin_t, u10i = sinf(phi) * sin_t;
+  const float u11r = cosf(pl) * cos_t, u11i = sinf(pl) * cos_t;
 
   float* re = state + (long long)p * 2 * dim;
   float* im = re + dim;
   const float r0 = re[i0], m0 = im[i0], r1 = re[i1], m1 = im[i1];
-  re[i0] = u00r * r0 - u00i * m0 + u01r * r1 - u01i * m1;
-  im[i0] = u00r * m0 + u00i * r0 + u01r * m1 + u01i * r1;
-  re[i1] = u11r * r1 - u11i * m1 + u10r * r0 - u10i * m0;
-  im[i1] = u11r * m1 + u11i * r1 + u10r * m0 + u10i * r0;
+  re[i0] = sum4(u00r, r0, -u00i, m0, u01r, r1, -u01i, m1);
+  im[i0] = sum4(u00r, m0, u00i, r0, u01r, m1, u01i, r1);
+  re[i1] = sum4(u11r, r1, -u11i, m1, u10r, r0, -u10i, m0);
+  im[i1] = sum4(u11r, m1, u11i, r1, u10r, m0, u10i, r0);
 }
 
 // Probe angles of NFT step k: rows [0, P) shift the probed coordinate by
@@ -252,6 +263,36 @@ int qt_nft_layer_sweep(float* angles_out, float* z, float* probe, float* work, f
                                         n_qubits, k_max);
   }
   return (int)cudaGetLastError();
+}
+
+// Floats of sampler scratch per individual (qt_sampled_shot_indices,
+// qt_sampled_shot_indices_folded, qt_sample_planes).
+int qt_sampler_scratch(int n_qubits) { return (int)sampler_scratch_floats(n_qubits); }
+
+// Replaces pallas_sampled_shot_energies (pallas_kernels.py:660) up to its
+// energy gather: sampled indices out [P, S] at the uniforms u_frac [P, S],
+// after each genome's circuit from |0...0> or initial [P, 2, 2^n] (null =
+// |0...0>); 14 <= n <= 20.  work [P, 2, 2^n] and scratch
+// [P, qt_sampler_scratch(n)] are scratch.
+int qt_sampled_shot_indices(int* out, float* work, float* scratch, const float* u_frac,
+                            const float* initial, const int* gate_types, const int* controls,
+                            const float* angles, const unsigned char* layer_mask, int pop,
+                            int n_layers, int n_qubits, int shots, void* stream) {
+  if (n_qubits < 14 || n_qubits > 20) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Genome g = make_genome(gate_types, controls, angles, layer_mask, pop, n_layers, n_qubits);
+  cudaError_t err = run_circuit(work, initial, pop, pop, g, 1LL << n_qubits, s);
+  if (err != cudaSuccess) return (int)err;
+  err = sample_planes(work, u_frac, scratch, out, pop, n_qubits, shots, s);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The sampler epilogue alone: sampled indices out [P, S] of the state planes
+// [P, 2, 2^n] at u_frac [P, S]; 14 <= n <= 21.
+int qt_sample_planes(int* out, float* scratch, const float* u_frac, const float* planes, int pop,
+                     int n_qubits, int shots, void* stream) {
+  return (int)sample_planes(planes, u_frac, scratch, out, pop, n_qubits, shots,
+                            (cudaStream_t)stream);
 }
 
 }  // extern "C"

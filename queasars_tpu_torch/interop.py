@@ -11,7 +11,10 @@ port's objects:
 - an individual's genome in its plain-data form (:func:`individual_to_plain`)
   into a port :class:`EVQEIndividual`;
 - a kron-fold pipeline's ten arrays (the JAX package's ``FoldPipeline``
-  fields, in order) into a port :class:`FoldPipeline`.
+  fields, in order) into a port :class:`FoldPipeline`;
+- a sampler evaluator's shot-stream state (its key and round counter,
+  :func:`sampler_state_to_plain`) into a port evaluator, so that both
+  draw the same keys from then on.
 
 :func:`individual_to_plain` reads only attributes that the JAX package's
 genome classes share with the port's, so it also turns a JAX individual into
@@ -121,6 +124,32 @@ def individual_from_plain(data: dict) -> EVQEIndividual:
         layers=layers,
         parameter_values=tuple(float(v) for v in data["parameter_values"]),
     )
+
+
+def _shot_stream_owner(evaluator):
+    """The evaluator holding the shot stream: an estimator's inner
+    precision sampler, else the evaluator itself."""
+    inner = getattr(evaluator, "_precision_sampler", None)
+    return evaluator if inner is None else inner
+
+
+def sampler_state_to_plain(evaluator) -> dict:
+    """A sampler evaluator's shot-stream state, ``{"key": [hi, lo],
+    "counter": c}``: its base key (``PRNGKey(seed)``) and the number of
+    evaluation rounds drawn.  Reads only the attributes the JAX package's
+    evaluators share with the port's (also an estimator with precision)."""
+    owner = _shot_stream_owner(evaluator)
+    key = np.asarray(owner._key).astype(np.int64).reshape(2)
+    return {"key": [int(key[0]), int(key[1])], "counter": int(owner._counter)}
+
+
+def sampler_state_from_plain(evaluator, data: dict) -> None:
+    """Set a port sampler evaluator's (or precision estimator's) shot
+    stream to :func:`sampler_state_to_plain` data: its next round draws
+    the keys the source evaluator's next round draws."""
+    owner = _shot_stream_owner(evaluator)
+    owner._key = torch.tensor([int(v) for v in data["key"]], dtype=torch.int64)
+    owner._counter = int(data["counter"])
 
 
 def fold_pipeline_from_numpy(arrays, device="cpu") -> FoldPipeline:

@@ -10,6 +10,13 @@ default and the slot route under ``QUEASARS_MXU=0``, as in the reference
 (``optim/objective.py``).  On the card, steps only enqueue launches;
 results reach the host once per call.
 
+Against a sampler evaluator every probe samples shots: individual p's keys
+are ``split(PRNGKey(seed), P)[p]`` and its probe of step k draws with
+``fold_in(fold_in(key_p, k), probe)`` (probe 0 the reset, 1 the +pi/2 and
+2 the -pi/2 probe), the reference's stream.  A last-layer search then runs
+the steps over the one-layer objective from the cached prefix states: the
+sweep kernel takes only the exact plain expectation.
+
 NFT math (arXiv:1903.12166, matching qiskit's ``nakanishi_fujii_todo``):
 the objective is an exact sinusoid in each U3 angle, so from z0=f(x),
 z1=f(x+pi/2), z3=f(x-pi/2) the minimum along that coordinate is found in
@@ -49,6 +56,7 @@ from queasars_tpu_torch.optim.sweep_kernel_launch import (
     nft_layer_sweep_launch,
 )
 from queasars_tpu_torch.sim.evaluators import packed_tensors
+from queasars_tpu_torch.utils import prng
 
 
 @dataclass(frozen=True)
@@ -74,16 +82,26 @@ class NFTConfig:
         return 2 * self.maxiter + ceil(self.maxiter / self.reset_interval)
 
 
-def _nft_steps(objective, angles, coords, n_free, active, maxiter, reset_interval):
+def _probe_keys(pop_keys, k: int, probe: int):
+    """The keys [P, 2] of probe ``probe`` at step ``k`` (None without
+    per-individual keys)."""
+    if pop_keys is None:
+        return None
+    return prng.fold_in(prng.fold_in(pop_keys, k), probe)
+
+
+def _nft_steps(objective, angles, coords, n_free, active, maxiter, reset_interval, pop_keys=None):
     """``maxiter`` lock-step NFT updates of device ``angles`` [P, L, n, 3]
-    over ``coords`` [P, K, 3] (layer, qubit, angle); returns (angles, z0)."""
+    over ``coords`` [P, K, 3] (layer, qubit, angle); ``objective(angles,
+    keys)`` gets each probe's keys from ``pop_keys`` [P, 2] (None: exact
+    objectives).  Returns (angles, z0)."""
     pop = angles.shape[0]
     rows = torch.arange(pop, device=angles.device)
     apply = active & (n_free > 0)
     z0 = torch.zeros(pop, dtype=torch.float32, device=angles.device)
     for k in range(maxiter):
         if k % reset_interval == 0:
-            z0 = objective(angles)
+            z0 = objective(angles, _probe_keys(pop_keys, k, 0))
         idx = torch.remainder(torch.full_like(n_free, k), n_free.clamp(min=1)).long()
         layer, q, a = coords[rows, idx].unbind(-1)
         theta = angles[rows, layer, q, a]
@@ -91,7 +109,10 @@ def _nft_steps(objective, angles, coords, n_free, active, maxiter, reset_interva
         plus[rows, layer, q, a] = theta + math.pi / 2
         minus = angles.clone()
         minus[rows, layer, q, a] = theta - math.pi / 2
-        shift, minimum_value = nft_three_point_update(z0, objective(plus), objective(minus))
+        shift, minimum_value = nft_three_point_update(
+            z0, objective(plus, _probe_keys(pop_keys, k, 1)),
+            objective(minus, _probe_keys(pop_keys, k, 2)),
+        )
         updated = angles.clone()
         updated[rows, layer, q, a] = theta + (shift + math.pi)
         angles = torch.where(apply[:, None, None, None], updated, angles)
@@ -107,16 +128,17 @@ class BatchedNFT:
 
     def publishes_exact_energies(self, evaluator) -> bool:
         """True when the returned energies are the exact evaluator energies
-        at the final angles (plain expectation: the 3-point model is exact
-        there), so selection may reuse them (PopulationEnergyCache)."""
+        at the final angles (plain exact expectation: the 3-point model is
+        exact there), so selection may reuse them (PopulationEnergyCache)."""
         try:
-            return not objective_operands(evaluator)["use_cvar"]
+            operands = objective_operands(evaluator)
         except TypeError:
             return False
+        return not operands["use_cvar"] and not operands["use_shots"]
 
     def _objective(self, operands, n_qubits, gate_types, controls, layer_mask, initial):
-        return lambda angles: population_energies(
-            gate_types, controls, angles, layer_mask, n_qubits=n_qubits,
+        return lambda angles, keys: population_energies(
+            gate_types, controls, angles, layer_mask, keys=keys, n_qubits=n_qubits,
             initial_state=initial, **operands,
         )
 
@@ -137,8 +159,9 @@ class BatchedNFT:
         :param n_free: [P] number of valid coordinates per individual
         :param active: [P] individuals taking part in this optimization
         :param angles: optional override of the packed angle tensor
-        :param seed: unused on the exact path (kept for the optimizer
-            contract of the mutation operators)
+        :param seed: RNG seed of the shot-sampling objective (each
+            individual's key is ``split(PRNGKey(seed), P)``; unused on the
+            exact path)
         :param last_layer: [P] layer indices asserting that every
             individual's free coordinates lie in that layer AND no later
             real layer exists — enables the prefix cache and the sweep
@@ -158,18 +181,20 @@ class BatchedNFT:
         coords_t = torch.as_tensor(coords, dtype=torch.long, device=device)
         n_free_t = torch.as_tensor(n_free, dtype=torch.int32, device=device)
         active_t = torch.as_tensor(active, dtype=torch.bool, device=device)
+        pop_keys = prng.split(prng.PRNGKey(seed), pop) if operands["use_shots"] else None
         cfg = self.config
 
         if last_layer is None:
             objective = self._objective(operands, n, gt, ctrl, lm, initial)
             out, energies = _nft_steps(
-                objective, ang, coords_t, n_free_t, active_t, cfg.maxiter, cfg.reset_interval
+                objective, ang, coords_t, n_free_t, active_t, cfg.maxiter, cfg.reset_interval,
+                pop_keys,
             )
         else:
             rows = torch.arange(pop, device=device)
             ll = torch.as_tensor(last_layer, dtype=torch.long, device=device)
             out = ang.clone()
-            if not operands["use_cvar"]:
+            if not operands["use_cvar"] and not operands["use_shots"]:
                 launch = (
                     nft_layer_sweep_folded_launch
                     if mxu_fold_enabled(None, n, path="sweep", device=device)
@@ -195,7 +220,7 @@ class BatchedNFT:
                 )
                 layer_angles, energies = _nft_steps(
                     objective, ang[rows, ll][:, None].contiguous(), layer_coords, n_free_t,
-                    active_t, cfg.maxiter, cfg.reset_interval,
+                    active_t, cfg.maxiter, cfg.reset_interval, pop_keys,
                 )
                 out[rows, ll] = layer_angles[:, 0]
         return out.cpu().numpy(), energies.cpu().numpy(), cfg.n_circuit_evaluations()
@@ -217,9 +242,11 @@ class BatchedNFT:
 
         Slot arrays are [P, S, ...]: ``coords`` [P, S, K, 3],
         ``n_free``/``active``/``slot_layers`` [P, S]; an individual sitting
-        a slot out carries ``packed.max_layers``.  ``seeds`` is unused on
-        the exact path.  Returns None for an unsupported evaluator (the
-        per-slot loop it would need is not ported).
+        a slot out carries ``packed.max_layers``.  ``seeds`` [S] seed the
+        shot-sampling objective, slot s with ``split(PRNGKey(seeds[s]),
+        P)`` (unused on the exact path; None = zeros).  Returns None for an
+        unsupported evaluator (the per-slot loop it would need is not
+        ported).
 
         :return: (optimized angles, last-slot energies, evaluations used
             per active individual per slot)
@@ -239,14 +266,19 @@ class BatchedNFT:
         layers_t = torch.as_tensor(slot_layers, dtype=torch.long, device=device)
         z0 = torch.zeros(pop, dtype=torch.float32, device=device)
         engine = choose_prefix_engine(n, device)
-        for s in range(n_free.shape[1]):
+        n_slots = n_free.shape[1]
+        seeds = np.zeros(n_slots, np.int64) if seeds is None else np.asarray(seeds)
+        for s in range(n_slots):
             prefix = simulate_prefix_states(
                 gt, ctrl, ang, prefix_mask(lm, layers_t[:, s]), n, initial, mode=engine
             )
             suffix = lm & ~prefix_mask(torch.ones_like(lm), layers_t[:, s])
             objective = self._objective(operands, n, gt, ctrl, suffix, prefix)
+            pop_keys = (
+                prng.split(prng.PRNGKey(int(seeds[s])), pop) if operands["use_shots"] else None
+            )
             ang, z0 = _nft_steps(
                 objective, ang, coords_t[:, s], n_free_t[:, s], active_t[:, s],
-                self.config.maxiter, self.config.reset_interval,
+                self.config.maxiter, self.config.reset_interval, pop_keys,
             )
         return ang.cpu().numpy(), z0.cpu().numpy(), self.config.n_circuit_evaluations()

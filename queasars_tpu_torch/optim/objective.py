@@ -1,21 +1,30 @@
-"""Population objectives for the batched optimizers (exact branch).
+"""Population objectives for the batched optimizers (diagonal operators).
 
-Counterpart of the exact diagonal branch of
-``queasars_tpu/optim/objective.py``: "angles -> energies" for a population,
-on one of two routes, as the JAX package's ``use_pallas=True`` route picks
-them:
+Counterpart of the diagonal branches of ``queasars_tpu/optim/objective.py``:
+"angles -> energies" for a population, exact or from sampled shots, on one
+of two routes, as the JAX package's ``use_pallas=True`` route picks them:
 
 - the kron-fold route (the default; ``QUEASARS_MXU`` unset or "1"): the
   genome becomes a fold pipeline (``sim/fold_pipeline.py``, with absorbed
   same-group phases) and the fold kernels compute energies
-  (``energies_exact_folded``) or, for CVaR, probabilities
-  (``population_probs_folded``);
+  (``energies_exact_folded``), probabilities for exact CVaR
+  (``population_probs_folded``) or sampled shots
+  (``sampled_shot_indices_folded``, 14 <= n <= 21);
 - the slot route (``QUEASARS_MXU=0``, or a size or device the fold kernels
-  do not take): the slot kernels ``energies_exact`` / ``population_probs``.
+  do not take): the slot kernels ``energies_exact`` / ``population_probs``
+  / ``sampled_shot_indices`` (14 <= n <= 20).
 
-On the CPU both run their plain versions; the fold route is chosen only for
-tensors on the card (:func:`mxu_fold_enabled`).  :func:`population_probs`
-makes the same choice for the solve's final measurement distribution.
+With shots (``use_shots``), each individual draws ``shots`` uniforms from
+its own threefry key (``keys`` [P, 2], ``utils/prng.py``); in the in-kernel
+samplers' size range they go to the sampled kernel, elsewhere the
+probabilities kernel and the flat sampler (``sim/sampling.py``) draw the
+same shots.  The sampled states' energies are gathered from the table and
+reduced to a mean or, with ``use_cvar``, a CVaR over the shots.
+
+On the CPU every wrapper runs its plain version; the fold route is chosen
+only for tensors on the card (:func:`mxu_fold_enabled`).
+:func:`population_probs` makes the same choice for the solve's final
+measurement distribution.
 """
 
 from __future__ import annotations
@@ -25,8 +34,13 @@ import os
 import torch
 
 from queasars_tpu_torch.sim import fold_kernels, slot_kernels
-from queasars_tpu_torch.sim.expectation import cvar_expectation_from_probs
+from queasars_tpu_torch.sim.expectation import (
+    cvar_expectation_from_probs,
+    cvar_expectation_from_shot_energies,
+)
 from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
+from queasars_tpu_torch.sim.sampling import sample_indices
+from queasars_tpu_torch.utils import prng
 
 
 def mxu_fold_enabled(use_mxu, n_qubits: int, path: str = "exact", device="cuda") -> bool:
@@ -54,6 +68,38 @@ def population_probs(
     )
 
 
+def population_shot_indices(
+    gate_types, controls, angles, layer_mask, keys, *, n_qubits: int, shots: int,
+    initial_state=None, use_mxu=None,
+) -> torch.Tensor:
+    """Sampled basis indices [P, shots] of each individual's circuit, drawn
+    with its key (``keys`` [P, 2]): the folded sampled kernel on the fold
+    route (14 <= n <= 21), the slot sampled kernel otherwise for
+    14 <= n <= 20, else the probabilities kernel and the flat sampler.  The
+    draws are the reference's in every branch (``u = uniform * total``)."""
+    device = angles.device
+    fold = mxu_fold_enabled(use_mxu, n_qubits, "sampler", device)
+    if n_qubits >= slot_kernels.SAMPLER_MIN_QUBITS and (
+        fold or n_qubits <= slot_kernels.SAMPLER_MAX_QUBITS
+    ):
+        frac = prng.uniform(keys, (shots,)).to(device)
+        if fold:
+            pipeline = build_fold_pipeline(
+                gate_types, controls, angles, layer_mask, n_qubits, absorb_diag=True
+            )
+            return fold_kernels.sampled_shot_indices_folded(
+                pipeline, frac, n_qubits, initial_state
+            )
+        return slot_kernels.sampled_shot_indices(
+            gate_types, controls, angles, layer_mask, frac, n_qubits, initial_state
+        )
+    probs = population_probs(
+        gate_types, controls, angles, layer_mask, n_qubits=n_qubits,
+        initial_state=initial_state, use_mxu=use_mxu,
+    )
+    return sample_indices(keys, probs, shots)
+
+
 def population_energies(
     gate_types,
     controls,
@@ -63,16 +109,29 @@ def population_energies(
     sorted_energies,
     energy_order,
     alpha,
+    keys=None,
     *,
     n_qubits: int,
     use_cvar: bool,
+    shots: int = 0,
+    use_shots: bool = False,
     initial_state=None,
     use_mxu=None,
 ) -> torch.Tensor:
     """Energies [P] for the population at the given angle tensor;
     ``initial_state`` is None (|0...0>) or per-individual [P, 2, 2^n].
-    The operands are :func:`objective_operands`' fields; ``use_mxu`` picks
-    the route (None: :func:`mxu_fold_enabled` decides)."""
+    The operands are :func:`objective_operands`' fields; ``keys`` [P, 2]
+    are the individuals' PRNG keys, read only with ``use_shots``;
+    ``use_mxu`` picks the route (None: :func:`mxu_fold_enabled` decides)."""
+    if use_shots:
+        idx = population_shot_indices(
+            gate_types, controls, angles, layer_mask, keys, n_qubits=n_qubits, shots=shots,
+            initial_state=initial_state, use_mxu=use_mxu,
+        )
+        shot_energies = table[idx.long()]
+        if use_cvar:
+            return cvar_expectation_from_shot_energies(shot_energies, alpha)
+        return shot_energies.mean(dim=-1)
     if use_cvar:
         probs = population_probs(
             gate_types, controls, angles, layer_mask, n_qubits=n_qubits,
@@ -91,10 +150,20 @@ def population_energies(
 
 def objective_operands(evaluator) -> dict:
     """The operands of an evaluator's objective, as keyword arguments of
-    :func:`population_energies` (TypeError for unsupported evaluators)."""
-    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+    :func:`population_energies` (TypeError for unsupported evaluators).
+    An estimator with ``precision > 0`` hands over its inner sampler's."""
+    from queasars_tpu_torch.sim.evaluators import (
+        SamplerExpectationEvaluator,
+        StatevectorExpectationEvaluator,
+    )
 
-    if not isinstance(evaluator, StatevectorExpectationEvaluator):
+    if isinstance(evaluator, StatevectorExpectationEvaluator):
+        if evaluator._precision_sampler is not None:
+            return objective_operands(evaluator._precision_sampler)
+        shots, use_shots = 0, False
+    elif isinstance(evaluator, SamplerExpectationEvaluator):
+        shots, use_shots = evaluator.shots, True
+    else:
         raise TypeError(f"unsupported evaluator type for batched optimization: {type(evaluator)!r}")
     return dict(
         table=evaluator._table,
@@ -102,4 +171,6 @@ def objective_operands(evaluator) -> dict:
         energy_order=evaluator._order,
         alpha=evaluator.alpha,
         use_cvar=evaluator.alpha < 1.0,
+        shots=shots,
+        use_shots=use_shots,
     )

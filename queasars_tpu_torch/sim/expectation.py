@@ -1,6 +1,7 @@
-"""Expectation values over exact distributions: plain and CVaR (PyTorch).
+"""Expectation values: plain and CVaR over exact distributions, and CVaR
+over sampled shots (PyTorch).
 
-Counterpart of the exact forms of ``queasars_tpu/sim/expectation.py``.  The
+Counterpart of the diagonal forms of ``queasars_tpu/sim/expectation.py``.  The
 CVaR semantics match the reference's ``_get_expectation``: sort states
 ascending by energy, accumulate probability mass up to ``alpha`` (the
 boundary state contributes only the remaining mass), divide by ``alpha``.
@@ -33,3 +34,18 @@ def cvar_expectation_from_probs(
     cum_prev = torch.cumsum(p_sorted, dim=-1) - p_sorted
     weights = torch.minimum((alpha - cum_prev).clamp(min=0.0), p_sorted)
     return (weights * sorted_energies).sum(dim=-1) / alpha
+
+
+def cvar_expectation_from_shot_energies(energies: torch.Tensor, alpha: float) -> torch.Tensor:
+    """CVaR over the lower-``alpha`` tail of each shot multiset
+    [..., shots]: sort the sampled energies and weight each shot's 1/shots
+    mass against the cutoff (the boundary shot contributes only the
+    remaining mass).  Equal to :func:`cvar_expectation_from_probs` over the
+    counts distribution of the same shots, up to summation order."""
+    shots = energies.shape[-1]
+    sorted_e = torch.sort(energies, dim=-1).values
+    mass = torch.tensor(1.0 / shots, dtype=torch.float32, device=energies.device)
+    cum_prev = torch.arange(shots, dtype=torch.float32, device=energies.device) * mass
+    alpha_t = torch.tensor(alpha, dtype=torch.float32, device=energies.device)
+    weights = torch.minimum((alpha_t - cum_prev).clamp(min=0.0), mass)
+    return (weights * sorted_e).sum(dim=-1) / alpha_t

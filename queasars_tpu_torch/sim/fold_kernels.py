@@ -1,17 +1,20 @@
 """The kron-fold circuit kernels: CUDA on the card, plain PyTorch on the CPU.
 
-Counterpart of ``queasars_tpu/sim/pallas_fold_kernels.py``.  Four wrappers,
+Counterpart of ``queasars_tpu/sim/pallas_fold_kernels.py``.  Five wrappers,
 each the port of one Pallas kernel, driven by a :class:`FoldPipeline`
 (``sim/fold_pipeline.py``):
 
-===============================  ================================================
-wrapper                          replaces (queasars_tpu/sim/pallas_fold_kernels.py)
-===============================  ================================================
-:func:`energies_exact_folded`    ``pallas_energies_exact_folded`` (:743)
-:func:`population_states_folded` ``pallas_population_states_folded`` (:1195)
-:func:`nft_layer_sweep_folded`   ``pallas_nft_layer_sweep_folded`` (:1623)
-:func:`population_probs_folded`  ``pallas_population_probs_folded`` (:699)
-===============================  ================================================
+====================================  ===========================================
+wrapper                               replaces (queasars_tpu/sim/
+                                      pallas_fold_kernels.py)
+====================================  ===========================================
+:func:`energies_exact_folded`         ``pallas_energies_exact_folded`` (:743)
+:func:`population_states_folded`      ``pallas_population_states_folded`` (:1195)
+:func:`nft_layer_sweep_folded`        ``pallas_nft_layer_sweep_folded`` (:1623)
+:func:`population_probs_folded`       ``pallas_population_probs_folded`` (:699)
+:func:`sampled_shot_indices_folded`   ``pallas_sampled_shot_energies_folded``
+                                      (:795), up to its energy gather
+====================================  ===========================================
 
 The kernels live in ``queasars_tpu_torch/csrc/fold_kernels.cu``; its header
 says how they are laid out on the H100.  What bounds them: a kron layer
@@ -21,7 +24,10 @@ so the group applies are bound by FP32 operations, not by their two passes
 over the state; the diagonal passes and epilogues are bound by bytes.  The
 TPU kernels' SMEM packing, VMEM chunking and bf16x3 limb emulation have no
 counterpart: the CUDA kernels read the pipeline tensors as they are and
-compute in fp32.
+compute in fp32 (the TPU's sampled kernel ran single-pass bf16; here it is
+fp32 like the rest, closer to the exact state).  The sampled kernel ends in
+the hierarchical inverse CDF shared with the slot sampler
+(``csrc/sampler.cuh``).
 
 Each wrapper takes its plain version (``*_plain``, beside it here) only
 because the tensors it was given lie on the CPU.  On CUDA tensors it
@@ -42,7 +48,17 @@ from queasars_tpu_torch.sim.fold_pipeline import (
     group_bounds,
     n_axis_groups,
 )
-from queasars_tpu_torch.sim.slot_kernels import _expect, _library, _on_cuda, _ptr, _stream
+from queasars_tpu_torch.sim.sampling import hierarchical_sample_plain
+from queasars_tpu_torch.sim.slot_kernels import (
+    SAMPLER_MIN_QUBITS,
+    _check_uniforms,
+    _expect,
+    _library,
+    _on_cuda,
+    _ptr,
+    _stream,
+    sampler_scratch,
+)
 from queasars_tpu_torch.sim.statevector import GATE_CROT, GATE_ROT
 
 launch_counts: dict[str, int] = {
@@ -50,11 +66,13 @@ launch_counts: dict[str, int] = {
     "population_states_folded": 0,
     "nft_layer_sweep_folded": 0,
     "population_probs_folded": 0,
+    "sampled_shot_indices_folded": 0,
 }
 
-#: largest n per path: exact/probs/states reach 22, the sweep 20 (as in the
-#: reference, whose sweep keeps four state planes resident)
-_CAPS = {"exact": 22, "sweep": 20}
+#: largest n per path: exact/probs/states reach 22, the in-kernel sampler 21
+#: and the sweep 20 (the reference's caps: its sampler's scratch and its
+#: sweep's four resident state planes)
+_CAPS = {"exact": 22, "sampler": 21, "sweep": 20}
 
 
 def reset_launch_counts() -> None:
@@ -64,8 +82,8 @@ def reset_launch_counts() -> None:
 
 def fold_supported(n_qubits: int, device, path: str = "exact") -> bool:
     """True when the fold kernels apply: tensors on a CUDA device and
-    7 <= n <= 22 (``path="exact"``, also probabilities and states) or
-    n <= 20 (``path="sweep"``)."""
+    7 <= n <= 22 (``path="exact"``, also probabilities and states),
+    n <= 21 (``path="sampler"``) or n <= 20 (``path="sweep"``)."""
     if path not in _CAPS:
         raise ValueError(f"unknown fold path {path!r}; expected one of {sorted(_CAPS)}")
     return torch.device(device).type == "cuda" and LANE_BITS <= n_qubits <= _CAPS[path]
@@ -208,6 +226,47 @@ def energies_exact_folded(pipeline: FoldPipeline, table, n_qubits: int, initial=
     )
     lib.check(status, "qt_fold_energies")
     launch_counts["energies_exact_folded"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sampled_shot_indices_folded
+# ---------------------------------------------------------------------------
+
+
+def sampled_shot_indices_folded_plain(pipeline: FoldPipeline, u_frac, n_qubits: int, initial=None):
+    """Plain version of :func:`sampled_shot_indices_folded`."""
+    probs = population_probs_folded_plain(pipeline, n_qubits, initial)
+    return hierarchical_sample_plain(probs, u_frac)
+
+
+def sampled_shot_indices_folded(pipeline: FoldPipeline, u_frac, n_qubits: int, initial=None):
+    """Sampled basis indices int32 [P, S] after each pipeline's circuit
+    (from |0...0> or per-individual ``initial``) at the uniforms ``u_frac``
+    [P, S] in [0, 1), by the slot sampler's hierarchical inverse CDF
+    (14 <= n <= 21).  The caller gathers ``table[indices]``."""
+    if not _on_card(pipeline, u_frac, initial):
+        return sampled_shot_indices_folded_plain(pipeline, u_frac, n_qubits, initial)
+    if not SAMPLER_MIN_QUBITS <= n_qubits <= _CAPS["sampler"]:
+        raise ValueError(
+            f"the folded sampler needs {SAMPLER_MIN_QUBITS} <= n_qubits <= {_CAPS['sampler']}"
+        )
+    pop, n_kron, d_slots = _check_pipeline(pipeline, n_qubits)
+    dim = 1 << n_qubits
+    if initial is not None:
+        _expect(initial, "initial", torch.float32, (pop, 2, dim))
+    shots = _check_uniforms(u_frac, pop)
+    device = pipeline.factors.device
+    out = torch.empty((pop, shots), dtype=torch.int32, device=device)
+    work = torch.empty((pop, 2, dim), dtype=torch.float32, device=device)
+    scratch = sampler_scratch(pop, n_qubits, device)
+    lib = _library()
+    status = lib.load().qt_sampled_shot_indices_folded(
+        out.data_ptr(), work.data_ptr(), scratch.data_ptr(), u_frac.data_ptr(), _ptr(initial),
+        *_pipeline_ptrs(pipeline), pop, n_kron, n_qubits, d_slots, shots, _stream(),
+    )
+    lib.check(status, "qt_sampled_shot_indices_folded")
+    launch_counts["sampled_shot_indices_folded"] += 1
     return out
 
 

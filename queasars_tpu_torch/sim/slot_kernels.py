@@ -1,6 +1,6 @@
 """The slot-circuit kernels: CUDA on the card, plain PyTorch on the CPU.
 
-Counterpart of ``queasars_tpu/sim/pallas_kernels.py``.  Four wrappers, each
+Counterpart of ``queasars_tpu/sim/pallas_kernels.py``.  Five wrappers, each
 the port of one Pallas kernel, with the same tensor contract:
 
 =============================  ===========================================
@@ -10,7 +10,12 @@ wrapper                        replaces (queasars_tpu/sim/pallas_kernels.py)
 :func:`population_states`      ``pallas_population_states`` (:326)
 :func:`nft_layer_sweep`        ``pallas_nft_layer_sweep`` (:837)
 :func:`population_probs`       ``pallas_population_probs`` (:267)
+:func:`sampled_shot_indices`   ``pallas_sampled_shot_energies`` (:660), up
+                               to its energy gather
 =============================  ===========================================
+
+:func:`sample_planes` runs the sampled kernels' shared epilogue alone
+(``csrc/sampler.cuh``), on given state planes.
 
 The kernels live in ``queasars_tpu_torch/csrc/slot_kernels.cu``; its header
 says how each one is laid out on the H100.  What bounds them: every active
@@ -21,6 +26,8 @@ probability passes read (and write) each plane once more.  The TPU kernels
 avoid that traffic by keeping a state in VMEM; an SM's 227 KB cannot hold
 an 8 MB state, so the first design here streams each slot through L2/HBM
 and leaves tiling of low-qubit slot runs in shared memory for later work.
+The sampled kernel runs the same circuit, then a hierarchical inverse CDF
+that reads the planes once more (bytes-bound as well).
 
 Each wrapper takes its plain version (``*_plain``, beside it here) only
 because the tensors it was given lie on the CPU.  On CUDA tensors it
@@ -33,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from queasars_tpu_torch.sim.sampling import hierarchical_sample_plain
 from queasars_tpu_torch.sim.statevector import probabilities, simulate_circuits
 
 launch_counts: dict[str, int] = {
@@ -40,7 +48,15 @@ launch_counts: dict[str, int] = {
     "population_states": 0,
     "nft_layer_sweep": 0,
     "population_probs": 0,
+    "sampled_shot_indices": 0,
+    "sample_planes": 0,
 }
+
+#: the in-kernel samplers' smallest size (the block hierarchy needs 128 rows
+#: of 128 lanes) and the slot sampler's largest (the reference's cap; the
+#: fold sampler reaches 21, ``fold_kernels._CAPS["sampler"]``)
+SAMPLER_MIN_QUBITS = 14
+SAMPLER_MAX_QUBITS = 20
 
 
 def reset_launch_counts() -> None:
@@ -284,3 +300,95 @@ def nft_layer_sweep(
     lib.check(status, "qt_nft_layer_sweep")
     launch_counts["nft_layer_sweep"] += 1
     return out_angles, z
+
+
+# ---------------------------------------------------------------------------
+# sampled_shot_indices and the sampler epilogue
+# ---------------------------------------------------------------------------
+
+
+def _check_uniforms(u_frac: torch.Tensor, pop: int) -> int:
+    if u_frac.dim() != 2 or u_frac.shape[0] != pop or u_frac.shape[1] < 1:
+        raise ValueError(f"u_frac must be [{pop}, shots], got {tuple(u_frac.shape)}")
+    _expect(u_frac, "u_frac", torch.float32, (pop, u_frac.shape[1]))
+    return u_frac.shape[1]
+
+
+def sampler_scratch(pop: int, n_qubits: int, device) -> torch.Tensor:
+    """The sampler epilogue's scratch for ``pop`` individuals."""
+    floats = _library().load().qt_sampler_scratch(n_qubits)
+    return torch.empty((pop, floats), dtype=torch.float32, device=device)
+
+
+def sample_planes_plain(states, u_frac, n_qubits):
+    """Plain version of :func:`sample_planes`."""
+    return hierarchical_sample_plain(states[:, 0] ** 2 + states[:, 1] ** 2, u_frac)
+
+
+def sample_planes(states, u_frac, n_qubits):
+    """Sampled basis indices int32 [P, S] of state planes [P, 2, 2^n]
+    (14 <= n <= 21) at the uniforms ``u_frac`` [P, S] in [0, 1): the
+    sampled kernels' epilogue alone."""
+    if not _on_cuda(states, u_frac):
+        return sample_planes_plain(states, u_frac, n_qubits)
+    if not SAMPLER_MIN_QUBITS <= n_qubits <= 21:
+        raise ValueError("the sampler epilogue needs 14 <= n_qubits <= 21")
+    pop = states.shape[0]
+    _expect(states, "states", torch.float32, (pop, 2, 1 << n_qubits))
+    shots = _check_uniforms(u_frac, pop)
+    out = torch.empty((pop, shots), dtype=torch.int32, device=states.device)
+    scratch = sampler_scratch(pop, n_qubits, states.device)
+    lib = _library()
+    status = lib.load().qt_sample_planes(
+        out.data_ptr(), scratch.data_ptr(), u_frac.data_ptr(), states.data_ptr(),
+        pop, n_qubits, shots, _stream(),
+    )
+    lib.check(status, "qt_sample_planes")
+    launch_counts["sample_planes"] += 1
+    return out
+
+
+def sampled_shot_indices_plain(
+    gate_types, controls, angles, layer_mask, u_frac, n_qubits, initial=None
+):
+    """Plain version of :func:`sampled_shot_indices`: the plain circuit's
+    probabilities through the same three-level arithmetic."""
+    probs = probabilities(gate_types, controls, angles, layer_mask, n_qubits, initial)
+    return hierarchical_sample_plain(probs, u_frac)
+
+
+def sampled_shot_indices(
+    gate_types, controls, angles, layer_mask, u_frac, n_qubits, initial=None
+):
+    """Sampled basis indices int32 [P, S] after each genome's circuit (from
+    |0...0> or per-individual ``initial``), at the uniforms ``u_frac``
+    [P, S] in [0, 1): ``u = frac * total`` resolved by the hierarchical
+    inverse CDF (14 <= n <= 20).  The caller gathers ``table[indices]``."""
+    tensors = (gate_types, controls, angles, layer_mask, u_frac)
+    tensors += () if initial is None else (initial,)
+    if not _on_cuda(*tensors):
+        return sampled_shot_indices_plain(
+            gate_types, controls, angles, layer_mask, u_frac, n_qubits, initial
+        )
+    if not SAMPLER_MIN_QUBITS <= n_qubits <= SAMPLER_MAX_QUBITS:
+        raise ValueError(
+            f"the slot sampler needs {SAMPLER_MIN_QUBITS} <= n_qubits <= {SAMPLER_MAX_QUBITS}"
+        )
+    pop, n_layers = _check_genome(gate_types, controls, angles, layer_mask, n_qubits)
+    dim = 1 << n_qubits
+    if initial is not None:
+        _expect(initial, "initial", torch.float32, (pop, 2, dim))
+    shots = _check_uniforms(u_frac, pop)
+    device = angles.device
+    out = torch.empty((pop, shots), dtype=torch.int32, device=device)
+    work = torch.empty((pop, 2, dim), dtype=torch.float32, device=device)
+    scratch = sampler_scratch(pop, n_qubits, device)
+    lib = _library()
+    status = lib.load().qt_sampled_shot_indices(
+        out.data_ptr(), work.data_ptr(), scratch.data_ptr(), u_frac.data_ptr(), _ptr(initial),
+        gate_types.data_ptr(), controls.data_ptr(), angles.data_ptr(), layer_mask.data_ptr(),
+        pop, n_layers, n_qubits, shots, _stream(),
+    )
+    lib.check(status, "qt_sampled_shot_indices")
+    launch_counts["sampled_shot_indices"] += 1
+    return out

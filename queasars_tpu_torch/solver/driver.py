@@ -8,9 +8,10 @@ criteria, and final result assembly.
 
 The port runs the JAX package's production fused route: the exact
 estimator on the slot kernels, the prefix cache, fused multi-slot parameter
-search and selection energy reuse.  Not ported yet, each refused with
-``NotImplementedError``: the configured sampler, checkpoint and resume, and
-the device mesh.
+search and selection energy reuse; with a configured sampler (or an
+estimator ``precision``), shot-sampled evaluation through the in-kernel
+samplers and a sampled final distribution.  Not ported yet, each refused
+with ``NotImplementedError``: checkpoint and resume, and the device mesh.
 """
 
 from __future__ import annotations
@@ -35,23 +36,22 @@ from queasars_tpu_torch.paulis import PauliSum
 from queasars_tpu_torch.optim.objective import population_probs
 from queasars_tpu_torch.sim.evaluators import (
     BaseCircuitEvaluator,
+    SamplerExpectationEvaluator,
     StatevectorExpectationEvaluator,
     packed_tensors,
 )
+from queasars_tpu_torch.sim.sampling import quasi_distribution, sample_counts
 from queasars_tpu_torch.solver.configured_evaluators import ConfiguredEstimator, ConfiguredSampler
 from queasars_tpu_torch.solver.result import EvolvingAnsatzMinimumEigensolverResult
 from queasars_tpu_torch.solver.termination_criteria import (
     EvolvingAnsatzMinimumEigensolverBaseTerminationCriterion,
 )
+from queasars_tpu_torch.utils import prng
 
 ListOrDict = Union[list, dict, None]
 
-
-def quasi_distribution(probs: np.ndarray, atol: float = 1e-12) -> dict[int, float]:
-    """Dense probabilities -> sparse {basis_state: probability} dict."""
-    probs = np.asarray(probs)
-    (nonzero,) = np.nonzero(probs > atol)
-    return {int(i): float(probs[i]) for i in nonzero}
+#: folded into the sampler's seed for the final distribution's key
+EIGENSTATE_KEY_SALT = 0x5EED
 
 
 @dataclass
@@ -61,10 +61,14 @@ class EvolvingAnsatzMinimumEigensolverConfiguration:
 
     :param population_initializer: problem-size (qubits) -> initial population
     :param evolutionary_operators: the per-generation operator pipeline
-    :param configured_sampler: not ported yet (must be None)
-    :param configured_estimator: exact-expectation settings (required)
+    :param configured_sampler: shot settings: with no estimator every
+        evaluation samples them; either way they sample the final
+        distribution
+    :param configured_estimator: expectation settings (exact, or
+        shot-based with ``precision > 0``); one of the two is required
     :param max_generations / max_circuit_evaluations / termination_criterion:
         at least one must be set
+    :param distribution_alpha_tail: CVaR alpha of the sampler path
     :param initial_population: optional start population
     :param pack_min_layers: fixed lower bound of the packed layer dimension
     :param checkpoint_path / resume_from_checkpoint / mesh / n_devices: not
@@ -82,6 +86,7 @@ class EvolvingAnsatzMinimumEigensolverConfiguration:
     max_generations: Optional[int]
     max_circuit_evaluations: Optional[int]
     termination_criterion: Optional[EvolvingAnsatzMinimumEigensolverBaseTerminationCriterion]
+    distribution_alpha_tail: float = 1.0
     initial_population: Optional[EVQEPopulation] = field(default=None)
     pack_min_layers: Optional[int] = None
     checkpoint_path: Optional[str] = None
@@ -102,12 +107,8 @@ class EvolvingAnsatzMinimumEigensolverConfiguration:
                 "no stopping condition configured: set max_generations, "
                 "max_circuit_evaluations and/or a termination_criterion"
             )
-        if self.configured_sampler is not None:
-            raise NotImplementedError("the configured sampler is not ported yet")
-        if self.configured_estimator is None:
-            raise ValueError("provide a configured_estimator")
-        if self.configured_estimator.precision:
-            raise NotImplementedError("estimator precision (shot-based) is not ported yet")
+        if self.configured_sampler is None and self.configured_estimator is None:
+            raise ValueError("provide a configured_sampler and/or a configured_estimator")
         if self.checkpoint_path is not None or self.resume_from_checkpoint is not None:
             raise NotImplementedError("checkpoint and resume are not ported yet")
         if self.mesh is not None or self.n_devices is not None:
@@ -144,8 +145,17 @@ class EvolvingAnsatzMinimumEigensolver:
         an :class:`EVQEIndividual` preparing it; reference: :201-276)."""
 
         def build_evaluator(op: PauliSum) -> BaseCircuitEvaluator:
-            return StatevectorExpectationEvaluator(
-                operator=op, initial_state=initial_state, device=self.configuration.device
+            config = self.configuration
+            if config.configured_estimator is not None:
+                return StatevectorExpectationEvaluator(
+                    operator=op, alpha=1.0, initial_state=initial_state,
+                    precision=config.configured_estimator.precision or 0.0,
+                    seed=config.configured_estimator.seed, device=config.device,
+                )
+            sampler = config.configured_sampler
+            return SamplerExpectationEvaluator(
+                operator=op, shots=sampler.shots, alpha=config.distribution_alpha_tail,
+                seed=sampler.seed, initial_state=initial_state, device=config.device,
             )
 
         evaluator = build_evaluator(operator)
@@ -168,7 +178,7 @@ class EvolvingAnsatzMinimumEigensolver:
 
     def _solve_by_evolution(
         self,
-        circuit_evaluator: StatevectorExpectationEvaluator,
+        circuit_evaluator: BaseCircuitEvaluator,
         aux_circuit_evaluators: ListOrDict,
     ) -> EvolvingAnsatzMinimumEigensolverResult:
         n_circuit_evaluations: list[int] = []
@@ -288,14 +298,22 @@ class EvolvingAnsatzMinimumEigensolver:
         return result
 
     def _measure_eigenstate(
-        self, individual: EVQEIndividual, evaluator: StatevectorExpectationEvaluator
+        self, individual: EVQEIndividual, evaluator: BaseCircuitEvaluator
     ) -> dict[int, float]:
-        """Exact measurement distribution of the best circuit (a
-        probabilities kernel on the card, on the optimizers' route)."""
+        """Measurement distribution of the best circuit: its probabilities
+        (a probabilities kernel on the card, on the optimizers' route),
+        sampled with the configured sampler's shots under the key
+        ``fold_in(PRNGKey(seed), 0x5EED)`` when one is configured, exact
+        otherwise (reference: driver.py ``_measure_eigenstate``)."""
         packed = PackedPopulation.pack([individual])
         probs = population_probs(
             *packed_tensors(packed, device=evaluator.device),
             n_qubits=packed.n_qubits,
             initial_state=evaluator.initial_states(1),
         )[0]
+        sampler = self.configuration.configured_sampler
+        if sampler is not None:
+            key = prng.fold_in(prng.PRNGKey(sampler.seed), EIGENSTATE_KEY_SALT)
+            counts = sample_counts(key, probs, sampler.shots)
+            return quasi_distribution(counts.cpu().numpy().astype(np.float64) / sampler.shots)
         return quasi_distribution(probs.cpu().numpy())

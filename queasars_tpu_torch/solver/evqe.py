@@ -41,8 +41,11 @@ from queasars_tpu_torch.utils.random import new_random_seed
 class EVQEMinimumEigensolverConfiguration:
     """EVQE hyperparameter surface (reference: evqe.py:34-177).
 
-    :param configured_estimator: exact-expectation settings (required)
-    :param configured_sampler: not ported yet (must be None)
+    :param configured_estimator: expectation settings (exact, or shot-based
+        with ``precision > 0``)
+    :param configured_sampler: shot settings (the sampler evaluation path
+        when no estimator is given, and the final distribution's sampling);
+        one of the two is required
     :param optimizer: batched parameter optimizer (default NFT(maxiter=40)
         if None); any object with the BatchedNFT.minimize contract
     :param optimizer_n_circuit_evaluations: expected evaluations per
@@ -60,6 +63,7 @@ class EVQEMinimumEigensolverConfiguration:
     :param use_tournament_selection / tournament_size: selection mode
     :param randomize_initial_population_parameters: random vs zero initial
         angles
+    :param distribution_alpha_tail: CVaR alpha of the sampler path
     :param initial_population: optional start population
     :param pack_min_layers: fixed lower bound of the packed layer dimension
     :param checkpoint_path / resume_from_checkpoint / mesh / n_devices: not
@@ -86,6 +90,7 @@ class EVQEMinimumEigensolverConfiguration:
     use_tournament_selection: bool = False
     tournament_size: Optional[int] = None
     randomize_initial_population_parameters: bool = True
+    distribution_alpha_tail: float = 1.0
     initial_population: Optional[EVQEPopulation] = field(default=None)
     pack_min_layers: Optional[int] = None
     checkpoint_path: Optional[str] = None
@@ -118,7 +123,7 @@ class EVQEMinimumEigensolverConfiguration:
 
 
 class EVQEMinimumEigensolver(EvolvingAnsatzMinimumEigensolver):
-    """The EVQE algorithm (arXiv:1910.09694) on the slot kernels
+    """The EVQE algorithm (arXiv:1910.09694) on the port's kernels
     (reference: evqe.py:180-255)."""
 
     def __init__(self, configuration: EVQEMinimumEigensolverConfiguration):
@@ -189,6 +194,7 @@ class EVQEMinimumEigensolver(EvolvingAnsatzMinimumEigensolver):
             max_generations=configuration.max_generations,
             max_circuit_evaluations=configuration.max_circuit_evaluations,
             termination_criterion=configuration.termination_criterion,
+            distribution_alpha_tail=configuration.distribution_alpha_tail,
             initial_population=configuration.initial_population,
             pack_min_layers=configuration.pack_min_layers,
             checkpoint_path=configuration.checkpoint_path,

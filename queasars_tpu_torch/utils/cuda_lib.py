@@ -1,5 +1,5 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``: the slot and
-the fold kernels).
+the fold kernels, with the shared headers ``csrc/*.cuh``).
 
 All sources are compiled by ONE ``nvcc`` call into a shared library with a
 plain C interface, loaded with ``ctypes``.  No PyTorch header is included,
@@ -51,6 +51,10 @@ SIGNATURES = {
     "qt_fold_energies": [_P] * 15 + [_I] * 4 + [_P],
     "qt_fold_pair_partials": [_I],
     "qt_fold_nft_sweep": [_P] * 21 + [_I] * 6 + [_P],
+    "qt_sampler_scratch": [_I],
+    "qt_sampled_shot_indices": [_P] * 9 + [_I] * 4 + [_P],
+    "qt_sample_planes": [_P] * 4 + [_I] * 3 + [_P],
+    "qt_sampled_shot_indices_folded": [_P] * 15 + [_I] * 5 + [_P],
 }
 
 

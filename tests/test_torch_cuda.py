@@ -162,7 +162,8 @@ def test_fold_kernels_match_plain_versions(cuda_device, n_qubits):
     torch.testing.assert_close(z, z_plain, atol=tol, rtol=0)
     torch.cuda.synchronize()
     assert fk.launch_counts == {"energies_exact_folded": 3, "population_states_folded": 2,
-                                "nft_layer_sweep_folded": 1, "population_probs_folded": 1}
+                                "nft_layer_sweep_folded": 1, "population_probs_folded": 1,
+                                "sampled_shot_indices_folded": 0}
 
 
 @pytest.mark.cuda
@@ -192,3 +193,72 @@ def test_fold_circuit_kernels_at_every_group_width(cuda_device, n_qubits):
         fk.energies_exact_folded_plain(pipeline, table, n_qubits),
         atol=1e-5 * float(table.abs().max()), rtol=0,
     )
+
+
+@pytest.mark.cuda
+def test_threefry_on_the_card_matches_the_cpu(cuda_device):
+    from queasars_tpu_torch.utils import prng
+
+    for seed in (0, 7, 2**31 - 1):
+        key = prng.PRNGKey(seed)
+        keys = prng.split(prng.fold_in(key, 0x5EED), 16)
+        on_card = prng.split(prng.fold_in(key.to(cuda_device), 0x5EED), 16)
+        assert torch.equal(on_card.cpu(), keys)
+        assert torch.equal(prng.uniform(on_card, (512,)).cpu(), prng.uniform(keys, (512,)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits", [14, 16, 21])
+def test_sampler_epilogue_matches_its_plain_version_bit_for_bit(cuda_device, n_qubits):
+    """On equal planes the CUDA epilogue and its plain version sum in one
+    order, so every draw agrees exactly; repeats give equal bits."""
+    from queasars_tpu_torch.utils import prng
+
+    gen = torch.Generator(device="cpu").manual_seed(n_qubits)
+    planes = torch.randn((3, 2, 1 << n_qubits), generator=gen) ** 3
+    planes[1, :, : 1 << (n_qubits - 2)] = 0.0  # a quarter of the mass at zero
+    planes /= planes.square().sum(dim=(1, 2), keepdim=True).sqrt()
+    planes = planes.to(cuda_device)
+    frac = prng.uniform(prng.split(prng.PRNGKey(n_qubits), 3), (700,)).to(cuda_device)
+    sk.reset_launch_counts()
+    idx = sk.sample_planes(planes, frac, n_qubits)
+    assert torch.equal(idx, sk.sample_planes_plain(planes, frac, n_qubits))
+    assert torch.equal(idx, sk.sample_planes(planes, frac, n_qubits))
+    torch.cuda.synchronize()
+    assert sk.launch_counts["sample_planes"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits", [14, 18])
+def test_sampled_kernels_match_plain_versions(cuda_device, n_qubits):
+    """Both sampled kernels against their plain versions and each other,
+    from |0...0> and from per-individual start states: at least 99% of
+    draws equal, every other draw a boundary draw (tolerance 1e-5 of the
+    total mass), equal bits on a repeat."""
+    import chip_smoke
+    from queasars_tpu_torch.sim import fold_kernels as fk
+    from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
+    from queasars_tpu_torch.utils import prng
+
+    genome = _genomes(n_qubits, 3, 4, n_qubits, cuda_device)
+    pipeline = build_fold_pipeline(*genome, n_qubits, absorb_diag=True)
+    frac = prng.uniform(prng.split(prng.PRNGKey(5), 4), (512,)).to(cuda_device)
+    initial = sk.population_states(*_genomes(n_qubits, 1, 4, 1, cuda_device), n_qubits)
+    sk.reset_launch_counts()
+    fk.reset_launch_counts()
+    for start in (None, initial):
+        probs = sk.population_probs_plain(*genome, n_qubits, start)
+        slot = sk.sampled_shot_indices(*genome, frac, n_qubits, start)
+        fold = fk.sampled_shot_indices_folded(pipeline, frac, n_qubits, start)
+        assert torch.equal(slot, sk.sampled_shot_indices(*genome, frac, n_qubits, start))
+        assert torch.equal(fold, fk.sampled_shot_indices_folded(pipeline, frac, n_qubits, start))
+        for got, want in (
+            (slot, sk.sampled_shot_indices_plain(*genome, frac, n_qubits, start)),
+            (fold, fk.sampled_shot_indices_folded_plain(pipeline, frac, n_qubits, start)),
+            (fold, slot),
+        ):
+            share, not_boundary = chip_smoke.draw_agreement(probs, frac, got, want)
+            assert share >= 0.99 and not_boundary == 0, (share, not_boundary)
+    torch.cuda.synchronize()
+    assert sk.launch_counts["sampled_shot_indices"] == 4
+    assert fk.launch_counts["sampled_shot_indices_folded"] == 4

@@ -84,12 +84,12 @@ def test_sweep_metadata_matches_jax_exactly():
 
 
 def test_fold_supported_ranges():
-    for path, cap in (("exact", 22), ("sweep", 20)):
+    for path, cap in (("exact", 22), ("sampler", 21), ("sweep", 20)):
         assert [n for n in range(4, 25) if fk.fold_supported(n, "cuda", path)] == list(
             range(7, cap + 1))
         assert not any(fk.fold_supported(n, "cpu", path) for n in range(4, 25))
     with pytest.raises(ValueError):
-        fk.fold_supported(10, "cuda", "sampler")
+        fk.fold_supported(10, "cuda", "grouped")
 
 
 def test_mxu_fold_enabled_resolution(monkeypatch):

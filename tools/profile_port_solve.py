@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of the port's config-4 solve goes, on one CUDA card.
+"""Where the time of the port's config-4 or config-3 solve goes, on one
+CUDA card.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 tools/profile_port_solve.py [--route fold|slot] [--repeats 3]
+    python3 tools/profile_port_solve.py [--config 4|3] [--route fold|slot] [--repeats 3]
 
-Runs the 20-qubit JSSP solve of config 4 (the one ``chip_smoke.py``
-drives) on one route -- ``fold`` (the default, ``QUEASARS_MXU`` unset) or
-``slot`` (``QUEASARS_MXU=0``) -- once to build and warm up, then
-``--repeats`` timed solves, each
+Runs one of the solves ``chip_smoke.py`` drives -- config 4, the 20-qubit
+JSSP solve with the exact estimator (the default), or config 3, the
+18-qubit JSSP solve with a 512-shot CVaR-0.5 sampler -- on one route --
+``fold`` (the default, ``QUEASARS_MXU`` unset) or ``slot``
+(``QUEASARS_MXU=0``) -- once to build and warm up, then ``--repeats``
+timed solves, each
 with every EVQE operator timed on the host clock (synchronised), then one
 solve under ``torch.profiler`` for the device time by kernel and the
 device's busy share.  Prints the card's name and power limit first and a
@@ -51,6 +54,7 @@ def timed_operators(solver, totals):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--config", type=int, choices=(4, 3), default=4)
     parser.add_argument("--route", choices=("fold", "slot"), default="fold")
     parser.add_argument("--repeats", type=int, default=3)
     args = parser.parse_args(argv)
@@ -65,13 +69,18 @@ def main(argv=None) -> int:
     ).stdout.strip()
     print(card, flush=True)
     chip_smoke.use_route(args.route)
-    _, _, hamiltonian = chip_smoke.jssp_with_qubits(3, 3, 6, 20, {1: 0.5, 2: 0.5})
-    chip_smoke.config4_solver().compute_minimum_eigenvalue(hamiltonian)  # build + warm-up
+    if args.config == 4:
+        _, _, hamiltonian = chip_smoke.jssp_with_qubits(3, 3, 6, 20, {1: 0.5, 2: 0.5})
+        make_solver = chip_smoke.config4_solver
+    else:
+        _, _, hamiltonian = chip_smoke.jssp_with_qubits(3, 3, 5, chip_smoke.CONFIG3["qubits"], 1)
+        make_solver = chip_smoke.config3_solver
+    make_solver().compute_minimum_eigenvalue(hamiltonian)  # build + warm-up
 
     runs = []
     for _ in range(args.repeats):
         totals = defaultdict(float)
-        solver = chip_smoke.config4_solver()
+        solver = make_solver()
         timed_operators(solver, totals)
         chip_smoke.reset_launch_counts()
         torch.cuda.synchronize()
@@ -89,7 +98,7 @@ def main(argv=None) -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    solver = chip_smoke.config4_solver()
+    solver = make_solver()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
@@ -107,7 +116,8 @@ def main(argv=None) -> int:
     for key, (ms, count) in top:
         print(f"  {ms:10.2f} ms  {count:7d} calls  {key[:90]}", flush=True)
     summary = {
-        "card": card, "route": args.route, "runs": runs, "profiled_wall_s": wall,
+        "card": card, "config": args.config, "route": args.route, "runs": runs,
+        "profiled_wall_s": wall,
         "device_busy_ms": device_ms,
         "device_busy_share": device_ms / (wall * 1e3),
         "top_kernels_ms": {key[:60]: ms for key, (ms, _) in top},
