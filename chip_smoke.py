@@ -37,7 +37,23 @@ Phases, each printing one flushed progress line with elapsed seconds:
    kernel must carry it, its best bitstring's table energy must be the
    Hamiltonian's, its final distribution must hold 512 shots and its
    eigenvalue lie within 5 sigma / sqrt(alpha * shots) of the best
-   individual's exact CVaR.
+   individual's exact CVaR;
+9. grouped kernel at the sampled phase's shapes: the 20-qubit transverse-
+   field Ising chain of config 2's constants (2 QWC groups) and the JAX
+   package's molecular-like operator (40 random 3-local terms, seed 7), from
+   |0...0> and from prefix states: the one-launch grouped sampler against
+   its plain version (equal draws, every other one a boundary draw), against
+   the folded sampler once per group on the extended pipeline (equal bits),
+   equal bits on a repeat, every group's mean shot energy against its exact
+   energy, the grouped exact energies against the term scan; times of the
+   kernel, the per-group route and the plain version;
+10. the TFIM-20 sampler solve per route (slot, then fold): config 2's
+   operator family and optimizer (five-point NFT, maxiter 20, population
+   20, 3 generations) under config 3's 512-shot sampler, tournament
+   selection of size 2; the fold route must run on the grouped kernel and
+   the slot route on the slot sampler, the eigenvalue must be negative and
+   lie within 5 sqrt(sum_g w_g^2 / S_g) of the best individual's exact
+   energy (term scan), and the final distribution must hold 512 shots.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -67,6 +83,18 @@ CONFIG3 = dict(SOLVE, qubits=18, shots=512, sampler_seed=0, alpha=0.5, tournamen
 SAMPLED = dict(shots=512, seed=3)
 #: bench.py's workload for population energies
 BENCH = dict(population=32, layers=5, terms=512)
+#: config 2's TFIM constants (experiments/exp_baseline_configs.py:117) and
+#: the JAX package's molecular-like operator (experiments/
+#: exp_grouped_pallas.py:65-78) for the grouped-kernel phase
+TFIM = dict(coupling=1.0, field=0.9)
+MOLECULAR = dict(terms=40, seed=7)
+#: the TFIM-20 sampler solve: config 2's operator family, optimizer,
+#: population and generations under config 3's sampler and selection
+#: share of the grouped sampler's draws that must equal its plain
+#: version's (see phase_grouped_kernels)
+GROUPED_DRAW_BAR = 0.965
+TFIM20 = dict(qubits=20, population=20, maxiter=20, generations=3, shots=512, sampler_seed=0,
+              tournament_size=2, pack_min_layers=6, seed=0)
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s outside
 #: the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -90,6 +118,8 @@ KERNELS = {
     "sampled_shot_indices": (SLOT_SOURCE, "queasars_tpu/sim/pallas_kernels.py:660"),
     "sampled_shot_indices_folded": (
         FOLD_SOURCE, "queasars_tpu/sim/pallas_fold_kernels.py:795"),
+    "grouped_shot_indices_folded": (
+        FOLD_SOURCE, "queasars_tpu/sim/pallas_fold_kernels.py:1043"),
 }
 #: the kernels each solve route must launch (the folded probabilities
 #: kernel carries the fold route's final measurement distribution)
@@ -103,6 +133,17 @@ ROUTE_KERNELS = {
 SAMPLER_ROUTE_KERNELS = {
     "slot": ("sampled_shot_indices", "population_states", "population_probs"),
     "fold": ("sampled_shot_indices_folded", "population_states", "population_probs_folded"),
+}
+#: the kernels the TFIM-20 solve must launch on each route, and the sampled
+#: kernels it must not (grouped shots: one launch per group on the slot
+#: route, the one-launch grouped kernel on the fold route)
+TFIM_ROUTE_KERNELS = {
+    "slot": ("sampled_shot_indices", "population_states", "population_probs"),
+    "fold": ("grouped_shot_indices_folded", "population_states", "population_probs_folded"),
+}
+TFIM_ROUTE_FORBIDDEN = {
+    "slot": ("grouped_shot_indices_folded", "sampled_shot_indices_folded"),
+    "fold": ("sampled_shot_indices", "sampled_shot_indices_folded"),
 }
 
 
@@ -169,6 +210,33 @@ def synthetic_table(n_qubits, terms):
         np.zeros((terms, 1), dtype=np.uint64),
     )
     return diagonal_energy_table(op, dtype=torch.float32, device=DEVICE)
+
+
+def molecular_like(n_qubits, n_terms, seed):
+    """Random 3-local mixed-basis Pauli strings with normal coefficients
+    (numpy seed): the JAX package's molecular-like operator
+    (experiments/exp_grouped_pallas.py:65-78), O(10) QWC groups at 40
+    terms."""
+    import numpy as np
+
+    from queasars_tpu_torch.paulis import PauliSum
+
+    rng = np.random.default_rng(seed)
+    terms = []
+    for _ in range(n_terms):
+        qubits = rng.choice(n_qubits, size=3, replace=False)
+        label = ["I"] * n_qubits
+        for q in qubits:
+            label[n_qubits - 1 - int(q)] = "XYZ"[rng.integers(3)]
+        terms.append(PauliSum.from_label("".join(label), float(rng.normal())))
+    return PauliSum.sum(terms)
+
+
+def tfim20():
+    """The TFIM-20 operator: config 2's builder and constants at n=20."""
+    from queasars_tpu_torch.problems.spin_chains import transverse_field_ising
+
+    return transverse_field_ising(TFIM20["qubits"], **TFIM)
 
 
 # ---------------------------------------------------------------------------
@@ -721,6 +789,146 @@ def phase_sampled_kernels(w):
     return finish_records(records, bounds)
 
 
+def grouped_bound(gt, mask, operands, shots, n_qubits):
+    """The least time of the grouped sampler at these shapes: each input
+    read once (genome, rotation layers, uniforms), the indices written
+    once, against the slot route's FLOPs: the circuit, every rotation
+    slot of every group, and |psi|^2 plus the running sum once per
+    group."""
+    pop, dim = gt.shape[0], 1 << n_qubits
+    rot_slots = int((operands.rot_types == 1).sum())
+    n_groups = operands.tables.shape[0]
+    flops = (circuit_flops(gt, mask, n_qubits)
+             + pop * (rot_slots * FLOPS_PER_PAIR * dim / 2
+                      + n_groups * FLOPS_PER_AMPLITUDE_SAMPLE * dim))
+    moved = genome_bytes(gt, mask) + operands.rot_types.numel() * 16 + 8 * pop * sum(shots)
+    return bound(moved, flops)
+
+
+def phase_grouped_kernels(w):
+    """The one-launch grouped sampler at n=20 (P=16, L=6, 512 shots per
+    group) on TFIM and the molecular-like operator, from |0...0> and from
+    prefix states: against the folded sampler once per group on the
+    extended pipeline (equal bits), equal bits on a repeat, against its
+    plain version (every differing draw a boundary draw, at least
+    GROUPED_DRAW_BAR of draws equal), against the float64 state's draws
+    (within one point of the float32 plain version's share), each group's
+    mean shot energy within 5 standard errors of its exact energy; the
+    grouped exact energies against the term scan to 1e-5 * sum|c|; times.
+
+    The draw bar is below the folded sampler's 97.5%: a basis rotation on
+    all 20 qubits (TFIM's X group) leaves every float32 engine -- the
+    kernel, its plain version, the slot route's kernel and plain version
+    -- agreeing with the float64 state's draws on only 96.7-97.4% of
+    draws at these shapes (printed here)."""
+    import torch
+
+    from queasars_tpu_torch.sim import fold_kernels as fk
+    from queasars_tpu_torch.sim import slot_kernels as sk
+    from queasars_tpu_torch.sim.expectation import general_pauli_expectation_real, pauli_terms
+    from queasars_tpu_torch.sim.fold_pipeline import (
+        build_fold_pipeline,
+        extend_fold_pipeline_with_rotation,
+    )
+    from queasars_tpu_torch.sim.grouped_sampling import (
+        append_rotation_layer,
+        grouped_exact_energies_from_states,
+        grouped_operands,
+    )
+    from queasars_tpu_torch.sim.sampling import hierarchical_sample_plain
+    from queasars_tpu_torch.utils import prng
+
+    n, shots = N_QUBITS, SAMPLED["shots"]
+    name = "grouped_shot_indices_folded"
+    records = {name: {}}
+    gt, ctrl, ang, mask, pmask, smask = w.gt, w.ctrl, w.ang, w.mask, w.pmask, w.smask
+    keys = prng.split(prng.PRNGKey(SAMPLED["seed"]), w.pop)
+    prefix = sk.population_states(gt, ctrl, ang, pmask, n)
+    operators = (("TFIM", tfim20()),
+                 ("molecular-like", molecular_like(n, MOLECULAR["terms"], MOLECULAR["seed"])))
+    for op_name, op in operators:
+        ops = grouped_operands(op, DEVICE)
+        n_groups = ops.tables.shape[0]
+        counts = (shots,) * n_groups
+        fracs = [prng.uniform(prng.fold_in(keys, g), (s,)).to(DEVICE) for g, s in enumerate(counts)]
+        scale = float(abs(op.coeffs).sum())
+        say(f"  {op_name}: {op.n_terms} terms in {n_groups} QWC groups, rotated groups "
+            f"{sum(ops.rotate)}, sum|c| {scale:.3f}")
+        terms = pauli_terms(op, DEVICE)
+        for label, m, start in (("from |0>", mask, None), ("from prefix", smask, prefix)):
+            base = build_fold_pipeline(gt, ctrl, ang, m, n, absorb_diag=True)
+            args = (base, ops.rot_factors, ops.rot_active, fracs, n, start)
+            got = fk.grouped_shot_indices_folded(*args, rotate=ops.rotate)
+            again = fk.grouped_shot_indices_folded(*args, rotate=ops.rotate)
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"the grouped sampler gives other bits for equal inputs ({op_name})")
+            plain = fk.grouped_shot_indices_folded_plain(*args)
+            extended = [extend_fold_pipeline_with_rotation(base, ops.rot_types[g],
+                                                           ops.rot_angles[g], n)
+                        for g in range(n_groups)]
+            worst_share, worst_z, worst_truth = 1.0, 0.0, 1.0
+            for g in range(n_groups):
+                per_group = fk.sampled_shot_indices_folded(extended[g], fracs[g], n, start)
+                require(torch.equal(got[g], per_group),
+                        f"{op_name} {label} group {g}: the grouped sampler and the per-group "
+                        "folded sampler disagree")
+                ext = append_rotation_layer(gt, ctrl, ang, m, ops.rot_types[g], ops.rot_angles[g])
+                probs = sk.population_probs_plain(*ext, n, start)
+                share, not_boundary = draw_agreement(probs, fracs[g], got[g], plain[g])
+                require(share >= GROUPED_DRAW_BAR and not_boundary == 0,
+                        f"{op_name} {label} group {g}: {share:.4%} of draws equal to the plain "
+                        f"version, {not_boundary} off a boundary")
+                truth = hierarchical_sample_plain(float64_probs(*ext, n, start), fracs[g].double())
+                kernel_truth = float((got[g] == truth).double().mean())
+                plain_truth = float((plain[g] == truth).double().mean())
+                require(kernel_truth >= plain_truth - 0.01,
+                        f"{op_name} {label} group {g}: the kernel's draws equal the float64 "
+                        f"state's on {kernel_truth:.4%}, the plain version's on {plain_truth:.4%}")
+                table = ops.tables[g]
+                exact = probs @ table
+                stderr = torch.sqrt((probs @ table**2 - exact**2).clamp(min=0) / counts[g])
+                z = float(((table[got[g].long()].mean(1) - exact)
+                           / stderr.clamp(min=1e-12)).abs().max())
+                require(z < 5, f"{op_name} {label} group {g}: mean {z:.2f} standard errors off")
+                err = float((table[got[g].long()].mean(1)
+                             - table[plain[g].long()].mean(1)).abs().max())
+                records[name]["max_abs_err"] = max(records[name].get("max_abs_err", 0.0), err)
+                worst_share, worst_z = min(worst_share, share), max(worst_z, z)
+                worst_truth = min(worst_truth, kernel_truth)
+                say(f"    group {g} (rotated: {ops.rotate[g]}): {share:.4%} of draws equal to the "
+                    f"plain version; float64 state's draws: kernel {kernel_truth:.4%}, plain "
+                    f"{plain_truth:.4%}")
+            say(f"  grouped {op_name} {label}: equal bits to the per-group folded sampler in "
+                f"all {n_groups} groups; at least {worst_share:.4%} of draws equal to the plain "
+                f"version (bar {GROUPED_DRAW_BAR:.1%}), all others boundary draws; at least "
+                f"{worst_truth:.4%} equal to the float64 state's; group means within "
+                f"{worst_z:.2f} standard errors")
+            states = fk.population_states_folded(base, n, start)
+            grouped_exact = grouped_exact_energies_from_states(states, ops)
+            scan = general_pauli_expectation_real(states, *terms)
+            gap = float((grouped_exact - scan).abs().max())
+            say(f"  {op_name} {label}: grouped exact energies vs term scan: {gap:.3e} "
+                f"(tolerance {1e-5 * scale:.3e})")
+            require(gap <= 1e-5 * scale, f"{op_name}: grouped exact energies disagree with the "
+                    "term scan")
+            kernel_ms = time_ms(lambda: fk.grouped_shot_indices_folded(*args, rotate=ops.rotate), 5)
+            per_group_ms = time_ms(lambda: [
+                fk.sampled_shot_indices_folded(extended[g], fracs[g], n, start)
+                for g in range(n_groups)], 3)
+            say(f"  grouped {op_name} {label}: kernel {kernel_ms:.3f} ms, per-group folded "
+                f"route {per_group_ms:.3f} ms")
+            if op_name == "TFIM" and start is None:
+                records[name].update(
+                    ms=kernel_ms, per_group_ms=per_group_ms,
+                    plain_ms=time_ms(lambda: fk.grouped_shot_indices_folded_plain(*args), 2),
+                    bound=grouped_bound(gt, m, ops, counts, n),
+                )
+    rec = records[name]
+    say(f"  {name}: {rec['ms']:.3f} ms (per-group route {rec['per_group_ms']:.3f} ms, plain "
+        f"{rec['plain_ms']:.3f} ms, bound {rec['bound'][0]:.4f} ms by {rec['bound'][1]})")
+    return records
+
+
 class _GenerationClock:
     """A termination criterion that never terminates and records when each
     generation's evaluation finished."""
@@ -801,6 +1009,42 @@ def config3_solver(clock=None):
         tournament_size=CONFIG3["tournament_size"],
         distribution_alpha_tail=CONFIG3["alpha"],
         pack_min_layers=CONFIG3["pack_min_layers"],
+        device=DEVICE,
+    ))
+
+
+def tfim20_solver(clock=None):
+    """The TFIM-20 sampler solve on the card: config 2's optimizer
+    (five-point NFT, maxiter 20), population (20) and generations (3)
+    (experiments/exp_baseline_configs.py:116-125) under config 3's
+    512-shot sampler with tournament selection of size 2 (TFIM energies are
+    negative), no estimator, ``pack_min_layers=6``, seed 0."""
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.solver import (
+        ConfiguredSampler,
+        EVQEMinimumEigensolver,
+        EVQEMinimumEigensolverConfiguration,
+    )
+
+    return EVQEMinimumEigensolver(EVQEMinimumEigensolverConfiguration(
+        configured_estimator=None,
+        configured_sampler=ConfiguredSampler(shots=TFIM20["shots"], seed=TFIM20["sampler_seed"]),
+        optimizer=BatchedNFT(NFTConfig(maxiter=TFIM20["maxiter"], five_point=True)),
+        optimizer_n_circuit_evaluations=None,
+        max_generations=TFIM20["generations"],
+        max_circuit_evaluations=None,
+        termination_criterion=clock,
+        random_seed=TFIM20["seed"],
+        population_size=TFIM20["population"],
+        speciation_genetic_distance_threshold=2,
+        selection_alpha_penalty=0.1,
+        selection_beta_penalty=0.1,
+        parameter_search_probability=0.25,
+        topological_search_probability=0.4,
+        layer_removal_probability=0.05,
+        use_tournament_selection=True,
+        tournament_size=TFIM20["tournament_size"],
+        pack_min_layers=TFIM20["pack_min_layers"],
         device=DEVICE,
     ))
 
@@ -952,6 +1196,60 @@ def phase_sampler_solve(route, seed, encoder, hamiltonian):
     return launches
 
 
+def phase_tfim_solve(route):
+    """The TFIM-20 sampler solve on one route; returns that run's launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from queasars_tpu_torch.genome import PackedPopulation
+    from queasars_tpu_torch.sim import slot_kernels as sk
+    from queasars_tpu_torch.sim.evaluators import packed_tensors
+    from queasars_tpu_torch.sim.expectation import general_pauli_expectation_real, pauli_terms
+    from queasars_tpu_torch.sim.grouped_sampling import grouped_weights
+
+    use_route(route)
+    op = tfim20()
+    n = op.n_qubits
+    solver = tfim20_solver(_GenerationClock())
+    reset_launch_counts()
+    start = time.perf_counter()
+    result = solver.compute_minimum_eigenvalue(op)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = launch_counts()
+    evals = int(sum(result.circuit_evaluations))
+    best_state = max(result.eigenstate, key=result.eigenstate.get)
+    say(f"phase TFIM-20 ({route} route): {n} qubits, {op.n_terms} terms, {result.generations} "
+        f"generations in {seconds:.2f} s, {evals} evaluations ({evals / seconds:.1f}/s), "
+        f"eigenvalue {result.eigenvalue:.6f}, best bitstring {format(best_state, f'0{n}b')} "
+        f"(p={result.eigenstate[best_state]:.4f})")
+    say(f"  launches over the solve: {launches}")
+    require(result.generations == TFIM20["generations"], "the TFIM-20 solve stopped early")
+    for name in TFIM_ROUTE_KERNELS[route]:
+        require(launches[name] > 0, f"kernel {name} was not launched by TFIM-20 on the {route} route")
+    for name in TFIM_ROUTE_FORBIDDEN[route]:
+        require(launches[name] == 0, f"kernel {name} ran on the {route} route of TFIM-20")
+    # check 1: the final distribution holds the sampler's shots
+    counts = np.array(list(result.eigenstate.values())) * TFIM20["shots"]
+    say(f"  check distribution: {counts.sum():.6f} shots over {len(counts)} states")
+    require(abs(counts.sum() - TFIM20["shots"]) < 1e-6 and np.allclose(counts, np.round(counts)),
+            "the final distribution does not hold the sampler's shots")
+    # check 2: the eigenvalue against the best individual's exact energy
+    # (term scan), within 5 standard errors of a grouped 512-shot estimate
+    packed = PackedPopulation.pack([result.best_individual])
+    states = sk.population_states(*packed_tensors(packed, device=DEVICE), n)
+    exact = float(general_pauli_expectation_real(states, *pauli_terms(op, DEVICE))[0])
+    weights = grouped_weights(op)
+    limit = 5 * float(np.sqrt(np.sum(weights**2 / TFIM20["shots"])))
+    say(f"  check eigenvalue: solver {result.eigenvalue:.6f} vs exact {exact:.6f} "
+        f"(|difference| {abs(result.eigenvalue - exact):.6f}, limit {limit:.6f})")
+    require(np.isfinite(result.eigenvalue) and result.eigenvalue < 0,
+            "the TFIM-20 eigenvalue is not negative")
+    require(abs(result.eigenvalue - exact) <= limit, "the eigenvalue is off the exact energy")
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     try:
@@ -988,6 +1286,9 @@ def main() -> int:
         records.update(phase_sampled_kernels(workload))
         say("phase sampled kernels: both sampled kernels agree with their plain versions "
             "and with each other")
+        records.update(phase_grouped_kernels(workload))
+        say("phase grouped kernel: the grouped sampler agrees with its plain version and "
+            "equals the per-group folded sampler")
         launches = {}
         for route in ROUTE_KERNELS:
             counts = phase_solve(route, seed, encoder, hamiltonian, table)
@@ -996,6 +1297,10 @@ def main() -> int:
         for route, route_kernels in SAMPLER_ROUTE_KERNELS.items():
             counts = phase_sampler_solve(route, seed3, encoder3, hamiltonian3)
             launches[route_kernels[0]] = counts[route_kernels[0]]
+        for route, route_kernels in TFIM_ROUTE_KERNELS.items():
+            counts = phase_tfim_solve(route)
+            if route == "fold":
+                launches[route_kernels[0]] = counts[route_kernels[0]]
     except Failure as failure:
         say(f"FAILED: {failure}")
         return 1

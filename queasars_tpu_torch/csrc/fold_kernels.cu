@@ -1,9 +1,10 @@
 // Kron-fold circuit kernels for Hopper (sm_90a) behind a plain C interface.
 //
-// Counterparts of the five fold kernels of queasars_tpu/sim/
+// Counterparts of the six fold kernels of queasars_tpu/sim/
 // pallas_fold_kernels.py (pallas_energies_exact_folded,
 // pallas_population_states_folded, pallas_nft_layer_sweep_folded,
-// pallas_population_probs_folded, pallas_sampled_shot_energies_folded).
+// pallas_population_probs_folded, pallas_sampled_shot_energies_folded,
+// pallas_grouped_shot_energies_folded).
 // Built with the slot kernels by one nvcc call and bound with ctypes
 // (queasars_tpu_torch/utils/cuda_lib.py); every entry point takes raw device
 // pointers plus the caller's stream, launches on that stream, never
@@ -38,6 +39,16 @@
 //     sampler.cuh.  The TPU ran its sampled kernel at single-pass bf16
 //     (precision="default"); here it runs in fp32 like every fold kernel,
 //     closer to the exact state.
+//   * grouped sampler: the circuit runs once into a work buffer; then, per QWC
+//     measurement group, the work planes are copied into a second buffer, the
+//     group's rotation kron layer is applied there by the same apply_group<M>
+//     launches a circuit's kron layer uses (inactive axis groups exit at
+//     once), and the epilogue samples that group's shots.  A group with no
+//     rotation (a Z-basis group) samples the work planes themselves.  The
+//     arithmetic per group is that of the sampled kernel on the circuit with
+//     the rotation layer appended, so both give equal bits.  The TPU kernel
+//     keeps the base state in VMEM and restores it per group; here the copy
+//     costs one more pass over the planes per rotated group.
 //   * NFT sweep: the step loop runs on the host side of this library and only
 //     enqueues launches.  Per step: BASE = REST . prefix (the swept layer with
 //     the probed qubit's factors and CDiag slot replaced by the identity), nine
@@ -583,6 +594,59 @@ int qt_sampled_shot_indices_folded(int* out, float* work, float* scratch, const 
   if (err != cudaSuccess) return (int)err;
   err = sample_planes(work, u_frac, scratch, out, pop, n_qubits, shots, s);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// Replaces pallas_grouped_shot_energies_folded (pallas_fold_kernels.py:1043)
+// up to its energy gathers: the pipeline's circuit once from |0...0> or
+// initial [P, 2, 2^n] (null = |0...0>), then per measurement group g its
+// rotation kron layer (rot_factors [G, P, 1, n, 2, 2, 2] and rot_active
+// [G, P, 1, n_axis_groups]: one-kron-layer pipelines of the population) and
+// group_shots[g] sampled indices at the uniforms u_frac.  u_frac and out hold
+// the groups one after another, group g as [P, group_shots[g]].
+// group_shots and group_rotate are HOST arrays of G ints; a group with
+// group_rotate[g] == 0 samples the circuit's planes as they are.  work
+// [P, 2, 2^n], rotated [P, 2, 2^n] (null when no group rotates) and scratch
+// [P, qt_sampler_scratch(n)] are scratch; 14 <= n <= 21.
+int qt_grouped_shot_indices_folded(int* out, float* work, float* rotated, float* scratch,
+                                   const float* u_frac, const float* initial,
+                                   const float* factors, const int* diag_ctrl,
+                                   const int* diag_tgt, const float* diag_phase,
+                                   const int* diag_count, const int* group_active,
+                                   const int* abs_ctrl, const int* abs_tgt,
+                                   const float* abs_phase, const int* abs_count,
+                                   const float* rot_factors, const int* rot_active,
+                                   const int* group_shots, const int* group_rotate, int n_meas,
+                                   int pop, int n_kron, int n_qubits, int d_slots,
+                                   void* stream) {
+  if (n_qubits < 14 || n_qubits > 21 || n_meas < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const Fold f = make_fold(factors, diag_ctrl, diag_tgt, diag_phase, diag_count, group_active,
+                           abs_ctrl, abs_tgt, abs_phase, abs_count, n_kron, n_qubits, d_slots);
+  cudaError_t err = run_folded(work, initial, pop, f, s);
+  if (err != cudaSuccess) return (int)err;
+  const long long dim = 1LL << n_qubits;
+  const long long layer_floats = (long long)pop * n_qubits * 8;
+  const long long layer_groups = (long long)pop * f.n_groups;
+  long long offset = 0;
+  for (int g = 0; g < n_meas; ++g) {
+    const float* planes = work;
+    if (group_rotate[g] != 0) {
+      if (rotated == nullptr) return (int)cudaErrorInvalidValue;
+      err = cudaMemcpyAsync(rotated, work, (size_t)pop * 2 * dim * sizeof(float),
+                            cudaMemcpyDeviceToDevice, s);
+      if (err != cudaSuccess) return (int)err;
+      const Fold r = make_fold(rot_factors + g * layer_floats, nullptr, nullptr, nullptr, nullptr,
+                               rot_active + g * layer_groups, nullptr, nullptr, nullptr, nullptr,
+                               1, n_qubits, d_slots);
+      apply_kron_layer(rotated, r, pop, 0, s);
+      planes = rotated;
+    }
+    err = sample_planes(planes, u_frac + offset, scratch, out + offset, pop, n_qubits,
+                        group_shots[g], s);
+    if (err != cudaSuccess) return (int)err;
+    offset += (long long)pop * group_shots[g];
+  }
+  return (int)cudaGetLastError();
 }
 
 // First-pass blocks of the sweep's pair sums per individual.

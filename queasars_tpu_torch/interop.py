@@ -14,7 +14,10 @@ port's objects:
   fields, in order) into a port :class:`FoldPipeline`;
 - a sampler evaluator's shot-stream state (its key and round counter,
   :func:`sampler_state_to_plain`) into a port evaluator, so that both
-  draw the same keys from then on.
+  draw the same keys from then on;
+- a Pauli sum's plain ``(z, x, coeffs)`` arrays into a port
+  :class:`PauliSum`, and grouped-measurement operands (the JAX package's
+  ``grouped_operands`` tuple) into port :class:`GroupedOperands`.
 
 :func:`individual_to_plain` reads only attributes that the JAX package's
 genome classes share with the port's, so it also turns a JAX individual into
@@ -36,7 +39,9 @@ from queasars_tpu_torch.genome.gates import (
 )
 from queasars_tpu_torch.genome.individual import EVQEIndividual
 from queasars_tpu_torch.genome.packing import PackedPopulation
+from queasars_tpu_torch.paulis import PauliSum
 from queasars_tpu_torch.sim.fold_pipeline import FoldPipeline
+from queasars_tpu_torch.sim.grouped_sampling import GroupedOperands, make_grouped_operands
 
 
 def packed_population_from_numpy(
@@ -165,3 +170,26 @@ def fold_pipeline_from_numpy(arrays, device="cpu") -> FoldPipeline:
         dtype = torch.float32 if name in ("factors", "diag_phase", "abs_phase") else torch.int32
         fields[name] = torch.as_tensor(np.array(array), dtype=dtype, device=device).contiguous()
     return FoldPipeline(**fields)
+
+
+def pauli_sum_from_numpy(n_qubits: int, z, x, coeffs) -> PauliSum:
+    """A port :class:`PauliSum` from the packed arrays of one (the JAX
+    package's ``z``, ``x`` uint64 word masks [K, words] and complex
+    ``coeffs`` [K])."""
+    return PauliSum(
+        int(n_qubits),
+        np.asarray(coeffs, dtype=np.complex128),
+        np.asarray(z, dtype=np.uint64),
+        np.asarray(x, dtype=np.uint64),
+    )
+
+
+def grouped_operands_from_numpy(rot_types, rot_angles, tables, const, device="cpu") -> GroupedOperands:
+    """Port :class:`GroupedOperands` on ``device`` from grouped-measurement
+    operands: rotation layers [G, n] / [G, n, 3], rotated-basis tables
+    [G, 2^n] and the identity constant (the JAX package's
+    ``grouped_operands`` tuple, as numpy)."""
+    return make_grouped_operands(
+        np.asarray(rot_types), np.asarray(rot_angles), np.asarray(tables),
+        np.float32(np.asarray(const)), device,
+    )

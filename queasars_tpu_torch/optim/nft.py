@@ -26,13 +26,23 @@ k updates flat parameter ``k mod n_free_i`` of each individual (qiskit
 NFT's cyclic rule), through per-individual coordinate tables.
 
 The 3-point update is exact for U3 angles and for CU3 angles against
-diagonal Hamiltonians — the only operators this port evaluates so far.
+diagonal Hamiltonians.  Against non-diagonal ones a CU3 theta picks up
+4pi-periodic half-harmonics, so ``NFTConfig(five_point=True)`` fits
+``c + a1 cos(theta - b1) + a2 cos(theta/2 - b2)`` from five samples over
+the 4pi period (one shared 5x5 solve) and takes the minimum of the fit on
+a 512-point grid: exact for every gate and operator, at 4 evaluations per
+step.  Neither five-point steps nor general operators reach the sweep
+kernels: their last-layer searches take the prefix-state loop, and an
+exact general objective runs the full circuits (the reference gives its
+general exact operands ``use_pallas=False``, which also makes
+``minimize_slots`` return None).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import lru_cache
 from math import ceil
 from typing import Optional
 
@@ -63,9 +73,11 @@ from queasars_tpu_torch.utils import prng
 class NFTConfig:
     """NFT hyperparameters (qiskit NFT-compatible knobs).
 
-    :param maxiter: parameter-update steps (each costs 2 evaluations, plus
-        1 extra on reset steps)
+    :param maxiter: parameter-update steps (each costs 2 evaluations, or 4
+        with ``five_point``, plus 1 extra on reset steps)
     :param reset_interval: re-measure the recycled z0 every this many steps
+    :param five_point: the exact two-frequency fit (see the module
+        docstring) instead of the 3-point sinusoid
 
     Every last-layer search simulates the frozen prefix layers once and
     re-enters every probe from the cached state (mathematically identical
@@ -75,11 +87,70 @@ class NFTConfig:
 
     maxiter: int = 40
     reset_interval: int = 32
+    five_point: bool = False
 
     def n_circuit_evaluations(self) -> int:
         """Evaluations used per optimized individual (ledger input for the
         budget enforcement, reference: mutation.py:282-290)."""
-        return 2 * self.maxiter + ceil(self.maxiter / self.reset_interval)
+        per_step = 4 if self.five_point else 2
+        return per_step * self.maxiter + ceil(self.maxiter / self.reset_interval)
+
+
+#: the five-point fit's sample shifts over the 4pi period (shift 0 is z0)
+FIVE_POINT_DELTAS = (4 * math.pi / 5, 8 * math.pi / 5, 12 * math.pi / 5, 16 * math.pi / 5)
+FIVE_POINT_GRID = 512
+
+
+def _five_point_inverse() -> np.ndarray:
+    """Inverse of the shared 5x5 basis matrix of the two-frequency fit, in
+    float64 and cast to float32 (the reference's ``_five_point_inverse``):
+    basis {1, cos d, sin d, cos d/2, sin d/2} at d in {0, 4pi/5, ...,
+    16pi/5}."""
+    deltas = np.array([0.0, *FIVE_POINT_DELTAS])
+    basis = np.stack(
+        [np.ones_like(deltas), np.cos(deltas), np.sin(deltas), np.cos(deltas / 2),
+         np.sin(deltas / 2)],
+        axis=1,
+    )
+    return np.linalg.inv(basis).astype(np.float32)
+
+
+def five_point_grid() -> torch.Tensor:
+    """The fit's 512 float32 shifts over [0, 4pi): ``float32(4pi) * k / 512``,
+    the values of ``jnp.linspace(0, 4pi, 512, endpoint=False)``."""
+    step = torch.arange(FIVE_POINT_GRID, dtype=torch.float32) / FIVE_POINT_GRID
+    return torch.tensor(4 * math.pi, dtype=torch.float32) * step
+
+
+@lru_cache(maxsize=None)
+def _five_point_constants(device: torch.device):
+    """(the fit's inverse [5, 5], the grid [G], the basis at the grid
+    [4, G]: cos, sin, cos/2, sin/2) on ``device``, built once per device."""
+    grid = five_point_grid()
+    basis = torch.stack([torch.cos(grid), torch.sin(grid), torch.cos(grid / 2), torch.sin(grid / 2)])
+    inverse = torch.as_tensor(_five_point_inverse())
+    return inverse.to(device), grid.to(device), basis.to(device)
+
+
+def _five_point_update(objective, angles, rows, layer, q, a, theta, z0, pop_keys, k):
+    """One five-point step's probes, fit and grid minimum: (the coordinate's
+    new values [P], the fit's minimum values [P])."""
+    samples = [z0]
+    for probe, delta in enumerate(FIVE_POINT_DELTAS, start=1):
+        shifted = angles.clone()
+        shifted[rows, layer, q, a] = theta + delta
+        samples.append(objective(shifted, _probe_keys(pop_keys, k, probe)))
+    inverse, grid, basis = _five_point_constants(angles.device)
+    coeffs = inverse @ torch.stack(samples)  # [5, P]
+    fitted = (
+        coeffs[0][:, None]
+        + coeffs[1][:, None] * basis[0][None, :]
+        + coeffs[2][:, None] * basis[1][None, :]
+        + coeffs[3][:, None] * basis[2][None, :]
+        + coeffs[4][:, None] * basis[3][None, :]
+    )  # [P, grid]
+    best = torch.argmin(fitted, dim=1)
+    return theta + grid[best], fitted.gather(1, best[:, None])[:, 0]
 
 
 def _probe_keys(pop_keys, k: int, probe: int):
@@ -90,11 +161,15 @@ def _probe_keys(pop_keys, k: int, probe: int):
     return prng.fold_in(prng.fold_in(pop_keys, k), probe)
 
 
-def _nft_steps(objective, angles, coords, n_free, active, maxiter, reset_interval, pop_keys=None):
+def _nft_steps(
+    objective, angles, coords, n_free, active, maxiter, reset_interval, pop_keys=None,
+    five_point=False,
+):
     """``maxiter`` lock-step NFT updates of device ``angles`` [P, L, n, 3]
     over ``coords`` [P, K, 3] (layer, qubit, angle); ``objective(angles,
     keys)`` gets each probe's keys from ``pop_keys`` [P, 2] (None: exact
-    objectives).  Returns (angles, z0)."""
+    objectives); ``five_point`` takes the two-frequency step.  Returns
+    (angles, z0)."""
     pop = angles.shape[0]
     rows = torch.arange(pop, device=angles.device)
     apply = active & (n_free > 0)
@@ -105,36 +180,46 @@ def _nft_steps(objective, angles, coords, n_free, active, maxiter, reset_interva
         idx = torch.remainder(torch.full_like(n_free, k), n_free.clamp(min=1)).long()
         layer, q, a = coords[rows, idx].unbind(-1)
         theta = angles[rows, layer, q, a]
-        plus = angles.clone()
-        plus[rows, layer, q, a] = theta + math.pi / 2
-        minus = angles.clone()
-        minus[rows, layer, q, a] = theta - math.pi / 2
-        shift, minimum_value = nft_three_point_update(
-            z0, objective(plus, _probe_keys(pop_keys, k, 1)),
-            objective(minus, _probe_keys(pop_keys, k, 2)),
-        )
+        if five_point:
+            new_theta, minimum_value = _five_point_update(
+                objective, angles, rows, layer, q, a, theta, z0, pop_keys, k
+            )
+        else:
+            plus = angles.clone()
+            plus[rows, layer, q, a] = theta + math.pi / 2
+            minus = angles.clone()
+            minus[rows, layer, q, a] = theta - math.pi / 2
+            shift, minimum_value = nft_three_point_update(
+                z0, objective(plus, _probe_keys(pop_keys, k, 1)),
+                objective(minus, _probe_keys(pop_keys, k, 2)),
+            )
+            new_theta = theta + (shift + math.pi)
         updated = angles.clone()
-        updated[rows, layer, q, a] = theta + (shift + math.pi)
+        updated[rows, layer, q, a] = new_theta
         angles = torch.where(apply[:, None, None, None], updated, angles)
         z0 = torch.where(apply, minimum_value, z0)
     return angles, z0
 
 
 class BatchedNFT:
-    """Population-lock-step NFT against a diagonal-operator evaluator."""
+    """Population-lock-step NFT against an expectation evaluator."""
 
     def __init__(self, config: NFTConfig = NFTConfig()):
         self.config = config
 
     def publishes_exact_energies(self, evaluator) -> bool:
         """True when the returned energies are the exact evaluator energies
-        at the final angles (plain exact expectation: the 3-point model is
-        exact there), so selection may reuse them (PopulationEnergyCache)."""
+        at the final angles (the 3-point model on the plain exact
+        expectation of a diagonal operator is exact there; a five-point
+        grid minimum or a general operator's fit is not), so selection may
+        reuse them (PopulationEnergyCache)."""
+        if self.config.five_point:
+            return False
         try:
             operands = objective_operands(evaluator)
         except TypeError:
             return False
-        return not operands["use_cvar"] and not operands["use_shots"]
+        return not (operands["use_cvar"] or operands["use_shots"] or operands["use_general"])
 
     def _objective(self, operands, n_qubits, gate_types, controls, layer_mask, initial):
         return lambda angles, keys: population_energies(
@@ -183,18 +268,22 @@ class BatchedNFT:
         active_t = torch.as_tensor(active, dtype=torch.bool, device=device)
         pop_keys = prng.split(prng.PRNGKey(seed), pop) if operands["use_shots"] else None
         cfg = self.config
+        exact_general = operands["use_general"] and not operands["use_shots"]
 
-        if last_layer is None:
+        if last_layer is None or exact_general:
             objective = self._objective(operands, n, gt, ctrl, lm, initial)
             out, energies = _nft_steps(
                 objective, ang, coords_t, n_free_t, active_t, cfg.maxiter, cfg.reset_interval,
-                pop_keys,
+                pop_keys, cfg.five_point,
             )
         else:
             rows = torch.arange(pop, device=device)
             ll = torch.as_tensor(last_layer, dtype=torch.long, device=device)
             out = ang.clone()
-            if not operands["use_cvar"] and not operands["use_shots"]:
+            if not (
+                operands["use_cvar"] or operands["use_shots"] or operands["use_general"]
+                or cfg.five_point
+            ):
                 launch = (
                     nft_layer_sweep_folded_launch
                     if mxu_fold_enabled(None, n, path="sweep", device=device)
@@ -220,7 +309,7 @@ class BatchedNFT:
                 )
                 layer_angles, energies = _nft_steps(
                     objective, ang[rows, ll][:, None].contiguous(), layer_coords, n_free_t,
-                    active_t, cfg.maxiter, cfg.reset_interval, pop_keys,
+                    active_t, cfg.maxiter, cfg.reset_interval, pop_keys, cfg.five_point,
                 )
                 out[rows, ll] = layer_angles[:, 0]
         return out.cpu().numpy(), energies.cpu().numpy(), cfg.n_circuit_evaluations()
@@ -245,8 +334,8 @@ class BatchedNFT:
         a slot out carries ``packed.max_layers``.  ``seeds`` [S] seed the
         shot-sampling objective, slot s with ``split(PRNGKey(seeds[s]),
         P)`` (unused on the exact path; None = zeros).  Returns None for an
-        unsupported evaluator (the per-slot loop it would need is not
-        ported).
+        unsupported evaluator and for a general operator's exact objective,
+        as the reference does (the per-slot loop they need is not ported).
 
         :return: (optimized angles, last-slot energies, evaluations used
             per active individual per slot)
@@ -254,6 +343,8 @@ class BatchedNFT:
         try:
             operands = objective_operands(evaluator)
         except TypeError:
+            return None
+        if operands["use_general"] and not operands["use_shots"]:
             return None
         device = evaluator.device
         n = packed.n_qubits
@@ -279,6 +370,6 @@ class BatchedNFT:
             )
             ang, z0 = _nft_steps(
                 objective, ang, coords_t[:, s], n_free_t[:, s], active_t[:, s],
-                self.config.maxiter, self.config.reset_interval, pop_keys,
+                self.config.maxiter, self.config.reset_interval, pop_keys, self.config.five_point,
             )
         return ang.cpu().numpy(), z0.cpu().numpy(), self.config.n_circuit_evaluations()

@@ -1,8 +1,8 @@
-"""Population objectives for the batched optimizers (diagonal operators).
+"""Population objectives for the batched optimizers.
 
-Counterpart of the diagonal branches of ``queasars_tpu/optim/objective.py``:
-"angles -> energies" for a population, exact or from sampled shots, on one
-of two routes, as the JAX package's ``use_pallas=True`` route picks them:
+Counterpart of ``queasars_tpu/optim/objective.py``: "angles -> energies" for
+a population, exact or from sampled shots, on one of two routes, as the JAX
+package's ``use_pallas=True`` route picks them:
 
 - the kron-fold route (the default; ``QUEASARS_MXU`` unset or "1"): the
   genome becomes a fold pipeline (``sim/fold_pipeline.py``, with absorbed
@@ -21,6 +21,13 @@ probabilities kernel and the flat sampler (``sim/sampling.py``) draw the
 same shots.  The sampled states' energies are gathered from the table and
 reduced to a mean or, with ``use_cvar``, a CVaR over the shots.
 
+A general (non-diagonal) operator (``use_general``) takes the reference's
+general branches: with shots, QWC grouped measurement
+(``sim/grouped_sampling.py``: the one-launch grouped kernel on the fold
+route, one sampled-kernel launch per group on the slot route, the flat
+sampler outside the in-kernel samplers' sizes); exact, the states kernel
+and then a dense Hermitian matvec (n <= 12) or the matrix-free term scan.
+
 On the CPU every wrapper runs its plain version; the fold route is chosen
 only for tensors on the card (:func:`mxu_fold_enabled`).
 :func:`population_probs` makes the same choice for the solve's final
@@ -33,10 +40,13 @@ import os
 
 import torch
 
-from queasars_tpu_torch.sim import fold_kernels, slot_kernels
+from queasars_tpu_torch.sim import fold_kernels, grouped_sampling, slot_kernels
 from queasars_tpu_torch.sim.expectation import (
+    DenseHermitian,
     cvar_expectation_from_probs,
     cvar_expectation_from_shot_energies,
+    dense_expectation,
+    general_pauli_expectation_real,
 )
 from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
 from queasars_tpu_torch.sim.sampling import sample_indices
@@ -117,12 +127,23 @@ def population_energies(
     use_shots: bool = False,
     initial_state=None,
     use_mxu=None,
+    use_general: bool = False,
 ) -> torch.Tensor:
     """Energies [P] for the population at the given angle tensor;
     ``initial_state`` is None (|0...0>) or per-individual [P, 2, 2^n].
     The operands are :func:`objective_operands`' fields; ``keys`` [P, 2]
     are the individuals' PRNG keys, read only with ``use_shots``;
-    ``use_mxu`` picks the route (None: :func:`mxu_fold_enabled` decides)."""
+    ``use_mxu`` picks the route (None: :func:`mxu_fold_enabled` decides).
+    With ``use_general``, ``table`` is a general operator's operands:
+    :class:`~queasars_tpu_torch.sim.grouped_sampling.GroupedOperands` with
+    shots (``shots`` an int or a per-group tuple), else a
+    :class:`~queasars_tpu_torch.sim.expectation.DenseHermitian` or
+    :class:`~queasars_tpu_torch.sim.expectation.PauliTerms`."""
+    if use_general:
+        return _general_energies(
+            gate_types, controls, angles, layer_mask, table, keys, n_qubits=n_qubits,
+            shots=shots, use_shots=use_shots, initial_state=initial_state, use_mxu=use_mxu,
+        )
     if use_shots:
         idx = population_shot_indices(
             gate_types, controls, angles, layer_mask, keys, n_qubits=n_qubits, shots=shots,
@@ -148,10 +169,40 @@ def population_energies(
     )
 
 
+def _general_energies(
+    gate_types, controls, angles, layer_mask, table, keys, *, n_qubits, shots, use_shots,
+    initial_state, use_mxu,
+):
+    """The general-operator branches of :func:`population_energies`, chosen
+    as the reference's are: grouped shots on the in-kernel samplers within
+    their sizes (14 <= n <= 21 on the fold route, <= 20 on the slot route),
+    else simulate once and sample each group with the flat sampler; exact
+    energies from the slot states kernel's states."""
+    if use_shots:
+        fold = mxu_fold_enabled(use_mxu, n_qubits, "sampler", angles.device)
+        cap = fold_kernels._CAPS["sampler"] if fold else slot_kernels.SAMPLER_MAX_QUBITS
+        kwargs = dict(n_qubits=n_qubits, shots=shots, initial_state=initial_state)
+        if slot_kernels.SAMPLER_MIN_QUBITS <= n_qubits <= cap:
+            return grouped_sampling.grouped_shot_energies_kernels(
+                gate_types, controls, angles, layer_mask, keys, table, use_mxu=use_mxu, **kwargs
+            )
+        return grouped_sampling.grouped_shot_energies(
+            gate_types, controls, angles, layer_mask, keys, table, **kwargs
+        )
+    states = slot_kernels.population_states(
+        gate_types, controls, angles, layer_mask, n_qubits, initial_state
+    )
+    if isinstance(table, DenseHermitian):
+        return dense_expectation(states, table)
+    return general_pauli_expectation_real(states, *table)
+
+
 def objective_operands(evaluator) -> dict:
     """The operands of an evaluator's objective, as keyword arguments of
     :func:`population_energies` (TypeError for unsupported evaluators).
-    An estimator with ``precision > 0`` hands over its inner sampler's."""
+    An estimator with ``precision > 0`` hands over its inner sampler's; a
+    general operator hands over its grouped-measurement operands (sampler)
+    or its dense matrix (n <= 12) or Pauli terms (estimator)."""
     from queasars_tpu_torch.sim.evaluators import (
         SamplerExpectationEvaluator,
         StatevectorExpectationEvaluator,
@@ -160,8 +211,20 @@ def objective_operands(evaluator) -> dict:
     if isinstance(evaluator, StatevectorExpectationEvaluator):
         if evaluator._precision_sampler is not None:
             return objective_operands(evaluator._precision_sampler)
+        if not evaluator._diagonal:
+            return dict(
+                table=evaluator._general, sorted_energies=None, energy_order=None, alpha=1.0,
+                use_cvar=False, shots=0, use_shots=False, use_general=True,
+            )
         shots, use_shots = 0, False
     elif isinstance(evaluator, SamplerExpectationEvaluator):
+        if not evaluator._diagonal:
+            group_shots = evaluator._group_shots
+            return dict(
+                table=evaluator._grouped, sorted_energies=None, energy_order=None, alpha=1.0,
+                use_cvar=False, shots=evaluator.shots if group_shots is None else group_shots,
+                use_shots=True, use_general=True,
+            )
         shots, use_shots = evaluator.shots, True
     else:
         raise TypeError(f"unsupported evaluator type for batched optimization: {type(evaluator)!r}")
@@ -173,4 +236,5 @@ def objective_operands(evaluator) -> dict:
         use_cvar=evaluator.alpha < 1.0,
         shots=shots,
         use_shots=use_shots,
+        use_general=False,
     )

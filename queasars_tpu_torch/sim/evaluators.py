@@ -1,14 +1,17 @@
 """Population circuit evaluators: "population of genomes -> energies".
 
-Counterpart of the diagonal part of ``queasars_tpu/sim/evaluators.py``
-(``BaseCircuitEvaluator``, ``StatevectorExpectationEvaluator``,
-``SamplerExpectationEvaluator``).  On the card an exact evaluation goes
-through the slot kernels (``sim/slot_kernels.py``), whichever route the
-optimizers take: plain expectations through the fused energies kernel, CVaR
-through the probabilities kernel.  A sampled evaluation takes the
-optimizers' route, as the reference's does: the folded or the slot sampled
-kernel (``optim/objective.py``).  On the CPU the same wrappers run their
-plain versions.
+Counterpart of ``queasars_tpu/sim/evaluators.py`` (``BaseCircuitEvaluator``,
+``StatevectorExpectationEvaluator``, ``SamplerExpectationEvaluator``).  On
+the card an exact evaluation of a diagonal operator goes through the slot
+kernels (``sim/slot_kernels.py``), whichever route the optimizers take:
+plain expectations through the fused energies kernel, CVaR through the
+probabilities kernel.  A general (non-diagonal) operator's exact energy is a
+dense matvec (n <= 12) or the matrix-free term scan on the slot states
+kernel's states.  A sampled evaluation takes the optimizers' route, as the
+reference's does: the folded or the slot sampled kernel, or for a general
+operator QWC grouped measurement (``optim/objective.py``,
+``sim/grouped_sampling.py``).  On the CPU the same wrappers run their plain
+versions.
 """
 
 from __future__ import annotations
@@ -25,6 +28,12 @@ from queasars_tpu_torch.genome.packing import PackedPopulation
 from queasars_tpu_torch.paulis import PauliSum
 from queasars_tpu_torch.paulis.diagonal import diagonal_energy_table
 from queasars_tpu_torch.sim import slot_kernels
+from queasars_tpu_torch.sim.expectation import DenseHermitian, pauli_terms
+from queasars_tpu_torch.sim.grouped_sampling import (
+    allocate_shots,
+    grouped_operands,
+    grouped_weights,
+)
 from queasars_tpu_torch.utils import prng
 from queasars_tpu_torch.utils.device import resolve_device
 
@@ -100,21 +109,22 @@ class BaseCircuitEvaluator(ABC):
         return [float(v) for v in self.evaluate_packed(packed)]
 
 
-class _DiagonalEvaluator(BaseCircuitEvaluator):
-    """Shared state of the diagonal evaluators: the energy table (sorted
-    with its order for CVaR) and the optional start state."""
+class _OperatorEvaluator(BaseCircuitEvaluator):
+    """Shared state of the operator evaluators: the operator, the CVaR
+    alpha, the optional start state and, for a diagonal operator, its energy
+    table (sorted with its order for CVaR)."""
 
     def __init__(self, operator: PauliSum, alpha: float, initial_state, device):
         super().__init__(operator.n_qubits, device)
         if not 0 < alpha <= 1:
             raise ValueError("alpha (the CVaR tail fraction) lies outside (0, 1]")
-        if not operator.is_diagonal:
-            raise NotImplementedError("general (non-diagonal) operators are not ported yet")
         self.operator = operator
         self.alpha = float(alpha)
+        self._diagonal = operator.is_diagonal
         self._initial = _prepare_initial_state(initial_state, operator.n_qubits, self.device)
-        self._table = diagonal_energy_table(operator, dtype=torch.float32, device=self.device)
-        self._order = self._sorted = None
+        self._table = self._order = self._sorted = None
+        if self._diagonal:
+            self._table = diagonal_energy_table(operator, dtype=torch.float32, device=self.device)
 
     def _sort_table(self) -> None:
         self._order = torch.argsort(self._table, stable=True)
@@ -132,19 +142,27 @@ class _DiagonalEvaluator(BaseCircuitEvaluator):
         return self.energies(*tensors).cpu().numpy()
 
 
-class SamplerExpectationEvaluator(_DiagonalEvaluator):
-    """Shot-based expectation of a diagonal operator, optionally CVaR over
-    the sampled shots (reference: circuit_evaluation.py:94-161).
+class SamplerExpectationEvaluator(_OperatorEvaluator):
+    """Shot-based expectation, optionally CVaR over the sampled shots
+    (reference: circuit_evaluation.py:94-161).  A general Pauli sum is
+    measured as hardware would: partitioned into qubit-wise-commuting groups
+    (``paulis/grouping.py``), each rotated into its product basis and
+    sampled with its own budget; CVaR then needs a diagonal operator.
 
-    :param operator: the Hamiltonian (diagonal; grouped measurement of
-        general Pauli sums is not ported yet)
-    :param shots: measurement shots per evaluation
+    :param operator: the Hamiltonian
+    :param shots: measurement shots per evaluation (per group for a general
+        operator under ``shot_allocation="per_group"``)
     :param alpha: CVaR lower-tail mass in (0, 1]; 1 = plain expectation
     :param seed: base RNG seed; evaluation round c draws its individuals'
         keys from ``split(fold_in(PRNGKey(seed), c), P)``, as the reference
         does, so equal seeds give the reference's shots
     :param initial_state: optional start state prepended to every circuit
     :param device: where evaluation runs (None = the CUDA device)
+    :param shot_allocation: how a general operator's groups share the
+        budget: ``"per_group"`` (every group gets ``shots``) or
+        ``"proportional"`` (``shots`` is the total, split by the groups'
+        coefficient L1 norms, ``grouped_sampling.allocate_shots``); ignored
+        for a diagonal operator
     """
 
     def __init__(
@@ -155,12 +173,30 @@ class SamplerExpectationEvaluator(_DiagonalEvaluator):
         seed: int = 0,
         initial_state: Optional[np.ndarray] = None,
         device=None,
+        shot_allocation: str = "per_group",
     ):
         if shots < 1:
             raise ValueError("shots must be at least 1")
+        if shot_allocation not in ("per_group", "proportional"):
+            raise ValueError("shot_allocation must be 'per_group' or 'proportional'")
         super().__init__(operator, alpha, initial_state, device)
         self.shots = int(shots)
-        self._sort_table()
+        self.shot_allocation = shot_allocation
+        self._grouped = None
+        self._group_shots: Optional[tuple] = None
+        if self._diagonal:
+            self._sort_table()
+        else:
+            if self.alpha < 1.0:
+                raise CircuitEvaluatorException(
+                    "CVaR (alpha<1) over the sampler path requires a diagonal "
+                    "operator: the qubit-wise-commuting groups of a general "
+                    "Pauli sum are measured in different bases, so their shots "
+                    "do not form one energy distribution to take a tail of"
+                )
+            self._grouped = grouped_operands(operator, self.device)
+            if shot_allocation == "proportional":
+                self._group_shots = allocate_shots(grouped_weights(operator), self.shots)
         self._key = prng.PRNGKey(seed)
         self._counter = 0
 
@@ -187,17 +223,18 @@ class SamplerExpectationEvaluator(_DiagonalEvaluator):
         )
 
 
-class StatevectorExpectationEvaluator(_DiagonalEvaluator):
-    """Exact expectation of a diagonal operator, optionally CVaR over the
-    exact distribution (reference: circuit_evaluation.py:164-219).
+class StatevectorExpectationEvaluator(_OperatorEvaluator):
+    """Exact expectation, optionally CVaR over the exact distribution
+    (reference: circuit_evaluation.py:164-219).
 
-    :param operator: the Hamiltonian (diagonal; general Pauli sums are not
-        ported yet)
+    :param operator: the Hamiltonian (any PauliSum up to 32 qubits; CVaR
+        needs a diagonal one)
     :param alpha: CVaR lower-tail mass in (0, 1]; 1 = plain expectation
     :param initial_state: optional start state prepended to every circuit
     :param precision: target standard error; above 0 every evaluation is a
         sampler evaluation of ``ceil(precision**-2)`` shots (the reference's
         noise law), through an inner :class:`SamplerExpectationEvaluator`
+        (grouped, every group with that budget, for a general operator)
     :param device: where evaluation runs (None = the CUDA device)
     :param seed: RNG seed of the precision shot stream
     """
@@ -221,8 +258,23 @@ class StatevectorExpectationEvaluator(_DiagonalEvaluator):
                 operator, shots=int(ceil(self.precision ** -2.0)), alpha=alpha, seed=seed,
                 initial_state=initial_state, device=self.device,
             )
-        if self.alpha < 1.0:
-            self._sort_table()
+        self._general = None
+        if self._diagonal:
+            if self.alpha < 1.0:
+                self._sort_table()
+        else:
+            if self.alpha < 1.0:
+                raise CircuitEvaluatorException("CVaR (alpha<1) requires a diagonal operator")
+            if operator.n_qubits > 32:
+                raise CircuitEvaluatorException("general operators limited to n<=32 qubits")
+            if operator.n_qubits <= 12:
+                dense = operator.to_dense_matrix()
+                self._general = DenseHermitian(
+                    torch.as_tensor(dense.real.astype(np.float32), device=self.device),
+                    torch.as_tensor(dense.imag.astype(np.float32), device=self.device),
+                )
+            else:
+                self._general = pauli_terms(operator, self.device)
 
     @property
     def _counter(self) -> int:
@@ -244,8 +296,10 @@ class StatevectorExpectationEvaluator(_DiagonalEvaluator):
         """Energies [P] of device genome tensors, from ``initial`` states
         when given, else from this evaluator's start state.  Exact energies
         run on the slot kernels, as the reference's ``evaluate_packed`` does
-        (the optimizers' objectives take the fold route); with precision
-        the inner sampler evaluates (``keys`` as there)."""
+        (the optimizers' objectives take the fold route); a general
+        operator's through the slot states kernel and the dense matvec or
+        term scan; with precision the inner sampler evaluates (``keys`` as
+        there)."""
         from queasars_tpu_torch.optim.objective import objective_operands, population_energies
 
         if self._precision_sampler is not None:

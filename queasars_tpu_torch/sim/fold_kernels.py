@@ -1,6 +1,6 @@
 """The kron-fold circuit kernels: CUDA on the card, plain PyTorch on the CPU.
 
-Counterpart of ``queasars_tpu/sim/pallas_fold_kernels.py``.  Five wrappers,
+Counterpart of ``queasars_tpu/sim/pallas_fold_kernels.py``.  Six wrappers,
 each the port of one Pallas kernel, driven by a :class:`FoldPipeline`
 (``sim/fold_pipeline.py``):
 
@@ -14,6 +14,8 @@ wrapper                               replaces (queasars_tpu/sim/
 :func:`population_probs_folded`       ``pallas_population_probs_folded`` (:699)
 :func:`sampled_shot_indices_folded`   ``pallas_sampled_shot_energies_folded``
                                       (:795), up to its energy gather
+:func:`grouped_shot_indices_folded`   ``pallas_grouped_shot_energies_folded``
+                                      (:1043), up to its energy gathers
 ====================================  ===========================================
 
 The kernels live in ``queasars_tpu_torch/csrc/fold_kernels.cu``; its header
@@ -25,9 +27,10 @@ over the state; the diagonal passes and epilogues are bound by bytes.  The
 TPU kernels' SMEM packing, VMEM chunking and bf16x3 limb emulation have no
 counterpart: the CUDA kernels read the pipeline tensors as they are and
 compute in fp32 (the TPU's sampled kernel ran single-pass bf16; here it is
-fp32 like the rest, closer to the exact state).  The sampled kernel ends in
+fp32 like the rest, closer to the exact state).  The sampled kernels end in
 the hierarchical inverse CDF shared with the slot sampler
-(``csrc/sampler.cuh``).
+(``csrc/sampler.cuh``); the grouped one runs the circuit once and then, per
+QWC measurement group, that group's rotation kron layer and the epilogue.
 
 Each wrapper takes its plain version (``*_plain``, beside it here) only
 because the tensors it was given lie on the CPU.  On CUDA tensors it
@@ -37,12 +40,15 @@ counts kernel launches (one per wrapper call that launched).
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from queasars_tpu_torch.sim.fold_pipeline import (
     LANE_BITS,
     FoldPipeline,
+    _apply_factors,
     apply_fold_pipeline_plain,
     build_fold_pipeline,
     group_bounds,
@@ -67,12 +73,16 @@ launch_counts: dict[str, int] = {
     "nft_layer_sweep_folded": 0,
     "population_probs_folded": 0,
     "sampled_shot_indices_folded": 0,
+    "grouped_shot_indices_folded": 0,
 }
 
 #: largest n per path: exact/probs/states reach 22, the in-kernel sampler 21
 #: and the sweep 20 (the reference's caps: its sampler's scratch and its
 #: sweep's four resident state planes)
 _CAPS = {"exact": 22, "sampler": 21, "sweep": 20}
+#: most measurement groups the one-launch grouped sampler takes (the
+#: reference's bound on its static per-group unroll)
+GROUPED_MAX_GROUPS = 64
 
 
 def reset_launch_counts() -> None:
@@ -268,6 +278,107 @@ def sampled_shot_indices_folded(pipeline: FoldPipeline, u_frac, n_qubits: int, i
     lib.check(status, "qt_sampled_shot_indices_folded")
     launch_counts["sampled_shot_indices_folded"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# grouped_shot_indices_folded
+# ---------------------------------------------------------------------------
+
+
+def grouped_fold_supported(n_qubits: int, device, n_meas_groups: int) -> bool:
+    """True when the one-launch grouped sampler applies: the folded
+    sampler's path (CUDA tensors, n <= 21) and at most
+    :data:`GROUPED_MAX_GROUPS` measurement groups, as the reference's
+    ``grouped_fold_supported`` (pallas_fold_kernels.py:1017); like every
+    in-kernel sampler it also needs n >= 14, which its callers check."""
+    return fold_supported(n_qubits, device, "sampler") and n_meas_groups <= GROUPED_MAX_GROUPS
+
+
+def grouped_shot_indices_folded_plain(
+    pipeline: FoldPipeline, rot_factors, rot_active, u_fracs, n_qubits: int, initial=None
+):
+    """Plain version of :func:`grouped_shot_indices_folded`: the plain fold
+    circuit once, then per group the plain rotation kron layer and the
+    hierarchical sampler (``rot_active`` is implied by the factors here)."""
+    base = apply_fold_pipeline_plain(pipeline, n_qubits, initial)
+    state = torch.complex(base[:, 0], base[:, 1])
+    pop = state.shape[0]
+    out = []
+    for g, frac in enumerate(u_fracs):
+        factors = rot_factors[g].expand(pop, *rot_factors[g].shape)
+        rotated = _apply_factors(state, factors, n_qubits)
+        out.append(hierarchical_sample_plain(rotated.real**2 + rotated.imag**2, frac))
+    return tuple(out)
+
+
+def grouped_shot_indices_folded(
+    pipeline: FoldPipeline, rot_factors, rot_active, u_fracs, n_qubits: int, initial=None,
+    rotate=None,
+):
+    """Sampled basis indices per QWC measurement group after each pipeline's
+    circuit (from |0...0> or per-individual ``initial`` [P, 2, 2^n]): the
+    circuit runs once, then group g applies its rotation kron layer
+    (``rot_factors`` [G, n, 2, 2, 2], active axis groups ``rot_active``
+    [G, n_axis_groups] 0/1) and samples at its uniforms ``u_fracs[g]``
+    [P, S_g].  Returns a tuple of G int32 [P, S_g]; the caller gathers
+    ``tables[g][indices]``.  Equal bits to :func:`sampled_shot_indices_folded`
+    on ``extend_fold_pipeline_with_rotation(pipeline, ...)`` per group.
+
+    ``rotate`` (G host booleans, None: read from ``rot_active``, which
+    waits for the card) says which groups rotate at all; the others sample
+    the circuit's own state."""
+    u_fracs = tuple(u_fracs)
+    if not _on_card(pipeline, rot_factors, rot_active, initial, *u_fracs):
+        return grouped_shot_indices_folded_plain(
+            pipeline, rot_factors, rot_active, u_fracs, n_qubits, initial
+        )
+    n_meas = rot_factors.shape[0]
+    device = pipeline.factors.device
+    if (
+        n_qubits < SAMPLER_MIN_QUBITS
+        or not grouped_fold_supported(n_qubits, device, n_meas)
+        or len(u_fracs) != n_meas
+    ):
+        raise ValueError(
+            f"the grouped sampler needs {SAMPLER_MIN_QUBITS} <= n_qubits <= {_CAPS['sampler']}, "
+            f"1 <= groups <= {GROUPED_MAX_GROUPS} and one uniform array per group"
+        )
+    pop, n_kron, d_slots = _check_pipeline(pipeline, n_qubits)
+    dim, n_groups = 1 << n_qubits, n_axis_groups(n_qubits)
+    _expect(rot_factors, "rot_factors", torch.float32, (n_meas, n_qubits, 2, 2, 2))
+    _expect(rot_active, "rot_active", torch.float32, (n_meas, n_groups))
+    if initial is not None:
+        _expect(initial, "initial", torch.float32, (pop, 2, dim))
+    shots = [_check_uniforms(frac, pop) for frac in u_fracs]
+    if rotate is None:
+        rotate = rot_active.bool().any(dim=1).tolist()
+    rotate = [bool(r) for r in rotate]
+    frac = torch.cat([f.reshape(-1) for f in u_fracs])
+    out = torch.empty(frac.numel(), dtype=torch.int32, device=device)
+    work = torch.empty((pop, 2, dim), dtype=torch.float32, device=device)
+    rotated = torch.empty_like(work) if any(rotate) else None
+    scratch = sampler_scratch(pop, n_qubits, device)
+    # the rotation layers as one-kron-layer pipelines of the population
+    # ([G, P, 1, n, 2, 2, 2] and [G, P, 1, n_groups])
+    factors = rot_factors[:, None, None].expand(n_meas, pop, 1, *rot_factors.shape[1:])
+    factors = factors.contiguous()
+    active = rot_active.to(torch.int32)[:, None, None].expand(n_meas, pop, 1, n_groups)
+    active = active.contiguous()
+    host_shots = (ctypes.c_int * n_meas)(*shots)
+    host_rotate = (ctypes.c_int * n_meas)(*map(int, rotate))
+    lib = _library()
+    status = lib.load().qt_grouped_shot_indices_folded(
+        out.data_ptr(), work.data_ptr(), _ptr(rotated), scratch.data_ptr(), frac.data_ptr(),
+        _ptr(initial), *_pipeline_ptrs(pipeline), factors.data_ptr(), active.data_ptr(),
+        ctypes.addressof(host_shots), ctypes.addressof(host_rotate),
+        n_meas, pop, n_kron, n_qubits, d_slots, _stream(),
+    )
+    lib.check(status, "qt_grouped_shot_indices_folded")
+    launch_counts["grouped_shot_indices_folded"] += 1
+    offsets = np.cumsum([0] + [pop * s for s in shots])
+    return tuple(
+        out[int(lo):int(hi)].view(pop, s) for lo, hi, s in zip(offsets[:-1], offsets[1:], shots)
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -249,6 +249,62 @@ def build_fold_pipeline(
     )
 
 
+def rotation_layer_factors(rot_types: torch.Tensor, rot_angles: torch.Tensor, n_qubits: int):
+    """Kron-layer form of measurement basis-rotation layers ([G, n] ID/ROT
+    slots, [G, n, 3] angles): ``(factors [G, n, 2, 2, 2] float32 with re/im
+    at axis 2, activity [G, n_axis_groups] float32 0/1)``, the extra kron
+    layer per group of the one-launch grouped sampler.  A group is active
+    where a factor deviates from the identity by more than 1e-14, the
+    reference's rule (``rotation_layer_factors``, fold_pipeline.py:402)."""
+    main_re, main_im, _, _, _ = slot_factors(rot_types.to(torch.int32), rot_angles.float())
+    factors = torch.stack([main_re, main_im], dim=2).contiguous()
+    eye_b = torch.eye(2, dtype=torch.float32, device=main_re.device)
+    dev = (main_re - eye_b) ** 2 + main_im**2
+    slot_active = dev.amax(dim=(-2, -1)) > 1e-14
+    return factors, _group_activity(slot_active, n_qubits).to(torch.float32)
+
+
+def extend_fold_pipeline_with_rotation(
+    pipeline: FoldPipeline, rot_type: torch.Tensor, rot_angle: torch.Tensor, n_qubits: int
+) -> FoldPipeline:
+    """Append one measurement basis-rotation layer ([n] ID/ROT slots, [n, 3]
+    angles) to a built pipeline.
+
+    A rotation layer holds single-qubit U3s only, so its Vdag factors are
+    identities: the base kron layers stay as they are, the appended kron
+    layer is the rotation's own U3 factors, and its diagonal pass is empty.
+    Equal in value to :func:`build_fold_pipeline` of the genome with the
+    layer appended (the reference's ``extend_fold_pipeline_with_rotation``,
+    fold_pipeline.py:334)."""
+    pop, _, _, _, _, _ = pipeline.factors.shape
+    d_slots = pipeline.diag_ctrl.shape[2]
+    device = pipeline.factors.device
+    factors, activity = rotation_layer_factors(rot_type[None], rot_angle[None], n_qubits)
+    new_factors = factors.expand(pop, 1, *factors.shape[1:])
+    new_active = activity.to(torch.int32).expand(pop, 1, activity.shape[1])
+    empty_idx = torch.full((pop, 1, d_slots), -1, dtype=torch.int32, device=device)
+    empty_phase = torch.tensor(
+        [[1.0, 0.0], [1.0, 0.0]], dtype=torch.float32, device=device
+    ).expand(pop, 1, d_slots, 2, 2)
+    empty_count = torch.zeros((pop, 1), dtype=torch.int32, device=device)
+
+    def cat(old, new):
+        return torch.cat([old, new], dim=1).contiguous()
+
+    return FoldPipeline(
+        factors=cat(pipeline.factors, new_factors),
+        diag_ctrl=cat(pipeline.diag_ctrl, empty_idx),
+        diag_tgt=cat(pipeline.diag_tgt, empty_idx),
+        diag_phase=cat(pipeline.diag_phase, empty_phase),
+        diag_count=cat(pipeline.diag_count, empty_count),
+        group_active=cat(pipeline.group_active, new_active),
+        abs_ctrl=cat(pipeline.abs_ctrl, empty_idx),
+        abs_tgt=cat(pipeline.abs_tgt, empty_idx),
+        abs_phase=cat(pipeline.abs_phase, empty_phase),
+        abs_count=cat(pipeline.abs_count, empty_count),
+    )
+
+
 def cu3_slot_factors_reference(theta: float, phi: float, lam: float):
     """Complex (V, phase0, phase1) of a CU3's eigendecomposition -- test
     convenience over :func:`slot_factors`."""

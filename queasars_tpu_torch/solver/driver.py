@@ -10,8 +10,12 @@ The port runs the JAX package's production fused route: the exact
 estimator on the slot kernels, the prefix cache, fused multi-slot parameter
 search and selection energy reuse; with a configured sampler (or an
 estimator ``precision``), shot-sampled evaluation through the in-kernel
-samplers and a sampled final distribution.  Not ported yet, each refused
-with ``NotImplementedError``: checkpoint and resume, and the device mesh.
+samplers -- grouped by QWC measurement groups for a general operator, with
+the sampler's ``shot_allocation`` -- and a sampled final distribution in the
+computational basis.  Not ported yet, each refused with
+``NotImplementedError``: checkpoint and resume, the device mesh, and an
+exact estimator solve of a general operator (its parameter search needs the
+per-slot loop, ``EVQEParameterSearch``).
 """
 
 from __future__ import annotations
@@ -156,6 +160,7 @@ class EvolvingAnsatzMinimumEigensolver:
             return SamplerExpectationEvaluator(
                 operator=op, shots=sampler.shots, alpha=config.distribution_alpha_tail,
                 seed=sampler.seed, initial_state=initial_state, device=config.device,
+                shot_allocation=sampler.shot_allocation,
             )
 
         evaluator = build_evaluator(operator)

@@ -55,6 +55,7 @@ SIGNATURES = {
     "qt_sampled_shot_indices": [_P] * 9 + [_I] * 4 + [_P],
     "qt_sample_planes": [_P] * 4 + [_I] * 3 + [_P],
     "qt_sampled_shot_indices_folded": [_P] * 15 + [_I] * 5 + [_P],
+    "qt_grouped_shot_indices_folded": [_P] * 20 + [_I] * 5 + [_P],
 }
 
 

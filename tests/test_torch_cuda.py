@@ -163,7 +163,8 @@ def test_fold_kernels_match_plain_versions(cuda_device, n_qubits):
     torch.cuda.synchronize()
     assert fk.launch_counts == {"energies_exact_folded": 3, "population_states_folded": 2,
                                 "nft_layer_sweep_folded": 1, "population_probs_folded": 1,
-                                "sampled_shot_indices_folded": 0}
+                                "sampled_shot_indices_folded": 0,
+                                "grouped_shot_indices_folded": 0}
 
 
 @pytest.mark.cuda
@@ -262,3 +263,75 @@ def test_sampled_kernels_match_plain_versions(cuda_device, n_qubits):
     torch.cuda.synchronize()
     assert sk.launch_counts["sampled_shot_indices"] == 4
     assert fk.launch_counts["sampled_shot_indices_folded"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits", [14, 18, 21])
+def test_grouped_kernel_matches_plain_version_and_per_group_route(cuda_device, n_qubits):
+    """The one-launch grouped sampler on TFIM (two groups, one of them
+    unrotated) and the molecular-like operator, with equal and with
+    proportional shots, from |0...0> and from per-individual start states:
+    equal bits to the folded sampler once per group on the extended
+    pipeline and on a repeat; against its plain version every differing
+    draw a boundary draw, and at least 97.5% of draws equal up to n=20
+    (95% at n=21, where a bin holds half the mass: 96.5% measured there
+    on an H100); a single unrotated group equals the
+    folded sampler itself."""
+    import chip_smoke
+    from queasars_tpu_torch.problems.spin_chains import transverse_field_ising
+    from queasars_tpu_torch.sim import fold_kernels as fk
+    from queasars_tpu_torch.sim.fold_pipeline import (
+        build_fold_pipeline,
+        extend_fold_pipeline_with_rotation,
+    )
+    from queasars_tpu_torch.sim.grouped_sampling import (
+        allocate_shots,
+        append_rotation_layer,
+        grouped_operands,
+        grouped_weights,
+    )
+    from queasars_tpu_torch.utils import prng
+
+    genome = _genomes(n_qubits, 3, 3, n_qubits, cuda_device)
+    pipeline = build_fold_pipeline(*genome, n_qubits, absorb_diag=True)
+    initial = sk.population_states(*_genomes(n_qubits, 1, 3, 1, cuda_device), n_qubits)
+    keys = prng.split(prng.PRNGKey(n_qubits), 3)
+    bar = 0.975 if n_qubits <= 20 else 0.95
+    operators = (transverse_field_ising(n_qubits, 1.0, 0.9),
+                 chip_smoke.molecular_like(n_qubits, 24, 7))
+    fk.reset_launch_counts()
+    calls = 0
+    for op, proportional in zip(operators, (False, True)):
+        ops = grouped_operands(op, cuda_device)
+        n_groups = ops.tables.shape[0]
+        shots = allocate_shots(grouped_weights(op), 300 * n_groups) if proportional else (256,) * n_groups
+        fracs = [prng.uniform(prng.fold_in(keys, g), (s,)).to(cuda_device)
+                 for g, s in enumerate(shots)]
+        for start in (None, initial):
+            args = (pipeline, ops.rot_factors, ops.rot_active, fracs, n_qubits, start)
+            got = fk.grouped_shot_indices_folded(*args, rotate=ops.rotate)
+            again = fk.grouped_shot_indices_folded(*args)
+            calls += 2
+            plain = fk.grouped_shot_indices_folded_plain(*args)
+            for g in range(n_groups):
+                assert tuple(got[g].shape) == (3, shots[g])
+                assert torch.equal(got[g], again[g])
+                extended = extend_fold_pipeline_with_rotation(
+                    pipeline, ops.rot_types[g], ops.rot_angles[g], n_qubits)
+                assert torch.equal(
+                    got[g], fk.sampled_shot_indices_folded(extended, fracs[g], n_qubits, start))
+                ext = append_rotation_layer(*genome, ops.rot_types[g], ops.rot_angles[g])
+                probs = sk.population_probs_plain(*ext, n_qubits, start)
+                share, not_boundary = chip_smoke.draw_agreement(probs, fracs[g], got[g], plain[g])
+                assert share >= bar and not_boundary == 0, (g, share, not_boundary)
+    # one unrotated group: the folded sampler on the circuit itself
+    ops = grouped_operands(operators[0], cuda_device)
+    g = ops.rotate.index(False)
+    frac = prng.uniform(keys, (200,)).to(cuda_device)
+    single = fk.grouped_shot_indices_folded(
+        pipeline, ops.rot_factors[g:g + 1].contiguous(), ops.rot_active[g:g + 1].contiguous(),
+        [frac], n_qubits, initial)
+    calls += 1
+    assert torch.equal(single[0], fk.sampled_shot_indices_folded(pipeline, frac, n_qubits, initial))
+    torch.cuda.synchronize()
+    assert fk.launch_counts["grouped_shot_indices_folded"] == calls

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Where the time of the port's config-4 or config-3 solve goes, on one
-CUDA card.
+"""Where the time of the port's config-4, config-3 or TFIM-20 solve goes, on
+one CUDA card.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 tools/profile_port_solve.py [--config 4|3] [--route fold|slot] [--repeats 3]
+    python3 tools/profile_port_solve.py [--config 4|3|tfim20] [--route fold|slot] [--repeats 3]
 
-Runs one of the solves ``chip_smoke.py`` drives -- config 4, the 20-qubit
-JSSP solve with the exact estimator (the default), or config 3, the
-18-qubit JSSP solve with a 512-shot CVaR-0.5 sampler -- on one route --
+Runs one of the solves ``chip_smoke.py`` drives, with its settings -- config
+4, the 20-qubit JSSP solve with the exact estimator (the default); config 3,
+the 18-qubit JSSP solve with a 512-shot CVaR-0.5 sampler; or tfim20, the
+20-qubit transverse-field Ising chain under a 512-shot sampler with
+five-point NFT (grouped measurement) -- on one route --
 ``fold`` (the default, ``QUEASARS_MXU`` unset) or ``slot``
 (``QUEASARS_MXU=0``) -- once to build and warm up, then ``--repeats``
 timed solves, each
@@ -54,7 +56,7 @@ def timed_operators(solver, totals):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--config", type=int, choices=(4, 3), default=4)
+    parser.add_argument("--config", choices=("4", "3", "tfim20"), default="4")
     parser.add_argument("--route", choices=("fold", "slot"), default="fold")
     parser.add_argument("--repeats", type=int, default=3)
     args = parser.parse_args(argv)
@@ -69,12 +71,15 @@ def main(argv=None) -> int:
     ).stdout.strip()
     print(card, flush=True)
     chip_smoke.use_route(args.route)
-    if args.config == 4:
+    if args.config == "4":
         _, _, hamiltonian = chip_smoke.jssp_with_qubits(3, 3, 6, 20, {1: 0.5, 2: 0.5})
         make_solver = chip_smoke.config4_solver
-    else:
+    elif args.config == "3":
         _, _, hamiltonian = chip_smoke.jssp_with_qubits(3, 3, 5, chip_smoke.CONFIG3["qubits"], 1)
         make_solver = chip_smoke.config3_solver
+    else:
+        hamiltonian = chip_smoke.tfim20()
+        make_solver = chip_smoke.tfim20_solver
     make_solver().compute_minimum_eigenvalue(hamiltonian)  # build + warm-up
 
     runs = []
