@@ -5,12 +5,13 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-Phases, each printing one flushed progress line with elapsed seconds:
+Phases, in the order they run, each printing one flushed progress line
+with elapsed seconds:
 
 1. device: the card's name and power limit, TF32 matmuls off;
-2. build: the CUDA kernels (``queasars_tpu_torch/csrc/*.cu``: slot and fold
-   kernels) with one nvcc call, printing its command, seconds and
-   ``-Xptxas -v`` lines;
+2. build: the CUDA kernels (``queasars_tpu_torch/csrc/*.cu``: slot, fold
+   and compacted-gate kernels) with one nvcc call, printing its command,
+   seconds and ``-Xptxas -v`` lines;
 3. slot kernels at full width (n=20): every slot kernel against its plain
    PyTorch version on the same inputs on the card, timed with CUDA events;
 4. fold kernels at the same shapes: every fold kernel against its plain
@@ -24,21 +25,7 @@ Phases, each printing one flushed progress line with elapsed seconds:
    epilogue alone beside ``torch.cumsum`` + ``torch.searchsorted``; then
    ``bench.py``'s sampler shape (P=32, 5 layers, 512 terms, CVaR 0.5)
    through the objective on each route;
-6. solve, slot route (``QUEASARS_MXU=0``): the 20-qubit 3x3 JSSP instance
-   under the repository's config 4 (population 16, NFT maxiter 30, 4
-   generations, ``pack_min_layers=6``, seed 0) through
-   ``EVQEMinimumEigensolver.compute_minimum_eigenvalue``, with every
-   kernel's launch count over that solve, then two checks of its result;
-7. solve, fold route (``QUEASARS_MXU`` unset, the JAX package's default):
-   the same solve and checks; the fold kernels must carry it;
-8. config 3 per route (slot, then fold): the 18-qubit 3x3 JSSP instance
-   with a 512-shot sampler (seed 0), CVaR 0.5, tournament selection of size
-   2 (experiments/exp_baseline_configs.py:128-141); the route's sampled
-   kernel must carry it, its best bitstring's table energy must be the
-   Hamiltonian's, its final distribution must hold 512 shots and its
-   eigenvalue lie within 5 sigma / sqrt(alpha * shots) of the best
-   individual's exact CVaR;
-9. grouped kernel at the sampled phase's shapes: the 20-qubit transverse-
+6. grouped kernel at the sampled phase's shapes: the 20-qubit transverse-
    field Ising chain of config 2's constants (2 QWC groups) and the JAX
    package's molecular-like operator (40 random 3-local terms, seed 7), from
    |0...0> and from prefix states: the one-launch grouped sampler against
@@ -47,7 +34,30 @@ Phases, each printing one flushed progress line with elapsed seconds:
    equal bits on a repeat, every group's mean shot energy against its exact
    energy, the grouped exact energies against the term scan; times of the
    kernel, the per-group route and the plain version;
-10. the TFIM-20 sampler solve per route (slot, then fold): config 2's
+7. compacted-gate kernels: first their main path, ``tools/port_compact.py``'s,
+   once at ``bench.py``'s shape (P=32, 5 real layers in the 6-layer bucket,
+   512-term table): the compaction's statistics and host time, equal bits
+   to the slot energies and probabilities kernels, sustained evaluations/s
+   of the compact and slot energies kernels over 40 angle perturbations x 3
+   repeats; its launches are the two kernels' counts.  Then at the bench
+   shape and at the slot phase's (P=16, L=6, JSSP table): both kernels
+   against their plain versions, equal bits on a repeat and (slot phase
+   shape) to the slot kernels, times in turns with the slot kernels;
+8. solve, slot route (``QUEASARS_MXU=0``): the 20-qubit 3x3 JSSP instance
+   under the repository's config 4 (population 16, NFT maxiter 30, 4
+   generations, ``pack_min_layers=6``, seed 0) through
+   ``EVQEMinimumEigensolver.compute_minimum_eigenvalue``, with every
+   kernel's launch count over that solve, then two checks of its result;
+9. solve, fold route (``QUEASARS_MXU`` unset, the JAX package's default):
+   the same solve and checks; the fold kernels must carry it;
+10. config 3 per route (slot, then fold): the 18-qubit 3x3 JSSP instance
+   with a 512-shot sampler (seed 0), CVaR 0.5, tournament selection of size
+   2 (experiments/exp_baseline_configs.py:128-141); the route's sampled
+   kernel must carry it, its best bitstring's table energy must be the
+   Hamiltonian's, its final distribution must hold 512 shots and its
+   eigenvalue lie within 5 sigma / sqrt(alpha * shots) of the best
+   individual's exact CVaR;
+11. the TFIM-20 sampler solve per route (slot, then fold): config 2's
    operator family and optimizer (five-point NFT, maxiter 20, population
    20, 3 generations) under config 3's 512-shot sampler, tournament
    selection of size 2; the fold route must run on the grouped kernel and
@@ -99,12 +109,15 @@ TFIM20 = dict(qubits=20, population=20, maxiter=20, generations=3, shots=512, sa
 #: the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-FLOPS_PER_PAIR = 28  # one complex 2x2 matvec on an amplitude pair
+#: U3 on an amplitude pair: u00 = cos(theta/2) is real, so the first output
+#: takes 2 + 6 + 2 operations and the second 6 + 6 + 2
+FLOPS_PER_PAIR = 24
 FLOPS_PER_AMPLITUDE_ENERGY = 5  # (re^2 + im^2) * table, accumulated
 FLOPS_PER_AMPLITUDE_PROB = 3
 FLOPS_PER_AMPLITUDE_SAMPLE = 4  # |psi|^2 and one add of the running sum
 SLOT_SOURCE = "queasars_tpu_torch/csrc/slot_kernels.cu"
 FOLD_SOURCE = "queasars_tpu_torch/csrc/fold_kernels.cu"
+COMPACT_SOURCE = "queasars_tpu_torch/csrc/compact_kernels.cu"
 #: kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "energies_exact": (SLOT_SOURCE, "queasars_tpu/sim/pallas_kernels.py:367"),
@@ -120,7 +133,12 @@ KERNELS = {
         FOLD_SOURCE, "queasars_tpu/sim/pallas_fold_kernels.py:795"),
     "grouped_shot_indices_folded": (
         FOLD_SOURCE, "queasars_tpu/sim/pallas_fold_kernels.py:1043"),
+    "compact_energies_exact": (COMPACT_SOURCE, "queasars_tpu/sim/compact_kernels.py:338"),
+    "compact_probs": (COMPACT_SOURCE, "queasars_tpu/sim/compact_kernels.py:353"),
 }
+#: the compacted-gate kernels, which no solve launches: their launches are
+#: counted over tools/port_compact.py's path (phase 7)
+COMPACT_KERNELS = ("compact_energies_exact", "compact_probs")
 #: the kernels each solve route must launch (the folded probabilities
 #: kernel carries the fold route's final measurement distribution)
 ROUTE_KERNELS = {
@@ -323,6 +341,12 @@ def check_close(name, got, want, tol, records, key=None):
     return err
 
 
+def probs_tolerance(plain) -> float:
+    """1e-5 of the largest probability: at n=20 the mean probability is
+    2^-20, far below an absolute 1e-5."""
+    return 1e-5 * float(plain.max())
+
+
 def draw_agreement(probs, u_frac, got, want, rel=1e-5):
     """(share of equal draws, number of differing draws that are not
     boundary draws) of two samplers' indices [P, S] at the uniforms
@@ -488,9 +512,9 @@ def phase_kernels(w):
     )
 
     # probabilities kernel: exact CVaR / the final measurement
+    plain_probs = sk.population_probs_plain(gt, ctrl, ang, mask, n)
     check_close(f"population_probs [{w.pop},2^{n}]", sk.population_probs(gt, ctrl, ang, mask, n),
-                sk.population_probs_plain(gt, ctrl, ang, mask, n), 1e-5, records,
-                "population_probs")
+                plain_probs, probs_tolerance(plain_probs), records, "population_probs")
     records["population_probs"].update(
         ms=time_ms(lambda: sk.population_probs(gt, ctrl, ang, mask, n), 5),
         plain_ms=time_ms(lambda: sk.population_probs_plain(gt, ctrl, ang, mask, n), 2),
@@ -599,11 +623,12 @@ def phase_fold_kernels(w):
 
     # probabilities: the whole circuits (CVaR / the final measurement)
     probs = fk.population_probs_folded(full_pipe, n)
-    check_close(f"population_probs_folded [{w.pop},2^{n}]", probs,
-                fk.population_probs_folded_plain(full_pipe, n), 1e-5, records,
-                "population_probs_folded")
+    plain_probs = fk.population_probs_folded_plain(full_pipe, n)
+    check_close(f"population_probs_folded [{w.pop},2^{n}]", probs, plain_probs,
+                probs_tolerance(plain_probs), records, "population_probs_folded")
     check_close("population_probs_folded vs slot population_probs", probs,
-                sk.population_probs(gt, ctrl, ang, mask, n), 1e-5, records)
+                sk.population_probs(gt, ctrl, ang, mask, n), probs_tolerance(plain_probs),
+                records)
     records["population_probs_folded"].update(
         ms=time_ms(lambda: fk.population_probs_folded(full_pipe, n), 5),
         plain_ms=time_ms(lambda: fk.population_probs_folded_plain(full_pipe, n), 2),
@@ -929,6 +954,108 @@ def phase_grouped_kernels(w):
     return records
 
 
+def compact_bounds(genome, compact, n_qubits) -> dict:
+    """The least time of each compacted-gate function: every active gate's
+    qubit, control, angle index and angle triple and every count read once,
+    the table read once and the output written once, against the active
+    gates' FLOPs (which are rows 1's and 4's at this shape)."""
+    gt, _, _, mask = genome
+    pop, dim = gt.shape[0], 1 << n_qubits
+    active = int(compact.boundaries[:, -1].sum())
+    moved = active * (4 + 4 + 4 + 12) + 4 * pop
+    flops = circuit_flops(gt, mask, n_qubits)
+    return {
+        "compact_energies_exact": bound(moved + 4 * dim + 4 * pop,
+                                        flops + FLOPS_PER_AMPLITUDE_ENERGY * dim * pop),
+        "compact_probs": bound(moved + 4 * dim * pop, flops + FLOPS_PER_AMPLITUDE_PROB * dim * pop),
+    }
+
+
+def phase_compact_kernels(w):
+    """Both compacted-gate kernels.  First their main path,
+    tools/port_compact.py's, once at bench.py's shape with the launch
+    counts set to 0 just before it: the compaction, equal bits to the slot
+    energies and probabilities kernels, the sustained comparison.  Then at
+    the bench shape and at the slot phase's: each kernel against its plain
+    version (energies to 1e-5 * max|table|, probabilities to 1e-5 of the
+    largest), equal bits on a repeat and, at the slot phase's shape, to
+    the slot kernels; times in turns with those kernels (kernel, slot,
+    slot, kernel).  Returns (records at the slot phase's shape, launches
+    over the path)."""
+    import torch
+
+    from queasars_tpu_torch.sim import compact_kernels as ck
+    from queasars_tpu_torch.sim import slot_kernels as sk
+    from tools import port_compact
+
+    t0 = time.perf_counter()
+    n = N_QUBITS
+    reset_launch_counts()
+    result = port_compact.compact_path(w.bench, w.bench_table)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = {name: counts[name] for name in COMPACT_KERNELS}
+    port_compact.report_compact_path(result, say)
+    say(f"  launches over the compact path: {launches}")
+    for name in COMPACT_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the compact path")
+    require(result["bits_equal"], "the compact path's energies or probabilities are not the "
+            "slot kernels' bits")
+
+    records = {name: {} for name in COMPACT_KERNELS}
+    shapes = (("bench shape", w.bench, w.bench_table, False),
+              ("slot phase shape", (w.gt, w.ctrl, w.ang, w.mask), w.table, True))
+    for label, genome, table, against_slot in shapes:
+        gt, ctrl, ang, mask = genome
+        start = time.perf_counter()
+        compact = ck.compact_gates(gt, ctrl, mask, n, device=DEVICE)
+        host_ms = (time.perf_counter() - start) * 1e3
+        say(f"  {label} [{gt.shape[0]}, L={gt.shape[1]}]: "
+            f"{port_compact.describe_compaction(port_compact.compaction_stats(compact, gt))}; "
+            f"compact_gates {host_ms:.3f} ms on the host")
+        energies = ck.compact_energies_exact(compact, ang, table)
+        probs = ck.compact_probs(compact, ang)
+        check_close(f"compact_energies_exact {label}", energies,
+                    ck.compact_energies_exact_plain(compact, ang, table),
+                    1e-5 * float(table.abs().max()), records, "compact_energies_exact")
+        plain_probs = ck.compact_probs_plain(compact, ang)
+        check_close(f"compact_probs {label}", probs, plain_probs, probs_tolerance(plain_probs),
+                    records, "compact_probs")
+        if against_slot:
+            require(torch.equal(energies, sk.energies_exact(gt, ctrl, ang, mask, table, n)),
+                    f"compact_energies_exact {label}: other bits than energies_exact")
+            require(torch.equal(probs, sk.population_probs(gt, ctrl, ang, mask, n)),
+                    f"compact_probs {label}: other bits than population_probs")
+            say(f"  {label}: equal bits to energies_exact and population_probs")
+        require(torch.equal(energies, ck.compact_energies_exact(compact, ang, table))
+                and torch.equal(probs, ck.compact_probs(compact, ang)),
+                f"the compacted-gate kernels give other bits for equal inputs ({label})")
+        say(f"  {label}: equal bits on a repeat")
+        kernels = {
+            "compact_energies_exact": (
+                lambda: ck.compact_energies_exact(compact, ang, table),
+                lambda: sk.energies_exact(gt, ctrl, ang, mask, table, n),
+                lambda: ck.compact_energies_exact_plain(compact, ang, table)),
+            "compact_probs": (
+                lambda: ck.compact_probs(compact, ang),
+                lambda: sk.population_probs(gt, ctrl, ang, mask, n),
+                lambda: ck.compact_probs_plain(compact, ang)),
+        }
+        bounds = compact_bounds(genome, compact, n)
+        for name, (kernel, slot, plain) in kernels.items():
+            first, slot_a, slot_b, last = (time_ms(fn, 5) for fn in (kernel, slot, slot, kernel))
+            entry = dict(ms=(first + last) / 2, slot_ms=(slot_a + slot_b) / 2,
+                         plain_ms=time_ms(plain, 1), bound=bounds[name])
+            say(f"  {name} {label}: {entry['ms']:.3f} ms ({first:.3f}, {last:.3f}); slot kernel "
+                f"{entry['slot_ms']:.3f} ms ({slot_a:.3f}, {slot_b:.3f}); ratio "
+                f"{entry['ms'] / entry['slot_ms']:.4f}; plain {entry['plain_ms']:.3f} ms; bound "
+                f"{entry['bound'][0]:.4f} ms by {entry['bound'][1]}")
+            if against_slot:
+                records[name].update(entry)
+    say(f"phase compact kernels: {time.perf_counter() - t0:.2f} s")
+    return records, launches
+
+
 class _GenerationClock:
     """A termination criterion that never terminates and records when each
     generation's evaluation finished."""
@@ -1050,16 +1177,18 @@ def tfim20_solver(clock=None):
 
 
 def reset_launch_counts():
-    from queasars_tpu_torch.sim import fold_kernels, slot_kernels
+    from queasars_tpu_torch.sim import compact_kernels, fold_kernels, slot_kernels
 
     slot_kernels.reset_launch_counts()
     fold_kernels.reset_launch_counts()
+    compact_kernels.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    from queasars_tpu_torch.sim import fold_kernels, slot_kernels
+    from queasars_tpu_torch.sim import compact_kernels, fold_kernels, slot_kernels
 
-    return {**slot_kernels.launch_counts, **fold_kernels.launch_counts}
+    return {**slot_kernels.launch_counts, **fold_kernels.launch_counts,
+            **compact_kernels.launch_counts}
 
 
 def use_route(route: str) -> None:
@@ -1289,7 +1418,8 @@ def main() -> int:
         records.update(phase_grouped_kernels(workload))
         say("phase grouped kernel: the grouped sampler agrees with its plain version and "
             "equals the per-group folded sampler")
-        launches = {}
+        compact_records, launches = phase_compact_kernels(workload)
+        records.update(compact_records)
         for route in ROUTE_KERNELS:
             counts = phase_solve(route, seed, encoder, hamiltonian, table)
             launches.update({name: counts[name] for name in ROUTE_KERNELS[route]})

@@ -1,5 +1,6 @@
-// Pieces shared by the slot and fold kernels: state initialisation, the
-// deterministic energy reduction and the probability pass.
+// Pieces shared by the slot, fold and compacted-gate kernels: state
+// initialisation, the U3 pair update, the deterministic energy reduction and
+// the probability pass.
 //
 // A state is two float32 planes [2, 2^n] (re, im); a population of P states
 // is [P, 2, 2^n].  The energy reduction sums (re^2 + im^2) * table in a fixed
@@ -22,6 +23,38 @@ __global__ void init_zero_state(float* state, long long dim) {
   float* s = state + (long long)blockIdx.y * 2 * dim;
   s[i] = i == 0 ? 1.0f : 0.0f;
   s[dim + i] = 0.0f;
+}
+
+// ((a0 b0 + a1 b1) + a2 b2) + a3 b3 with every product and sum rounded on its
+// own (no FMA contraction): the plain version's order of operations
+// (sim/statevector.py::apply_u3_pairs), so on the card a state equals its
+// plain version's bit for bit.
+__device__ __forceinline__ float sum4(float a0, float b0, float a1, float b1, float a2,
+                                      float b2, float a3, float b3) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)), __fmul_rn(a2, b2)),
+                   __fmul_rn(a3, b3));
+}
+
+// U3(theta, phi, lam) on the amplitude pair (i0, i1) of the planes re, im,
+// i1 = i0 | 2^q.  The U3 entries are those of _u3_entries
+// (queasars_tpu/sim/pallas_kernels.py:44-52), computed with sinf/cosf as the
+// plain version's torch.sin/torch.cos compute them on the card.  The slot
+// gate pass and the compacted-gate pass both apply their gates here, so they
+// round alike.
+__device__ __forceinline__ void u3_pair_update(float* re, float* im, long long i0, long long i1,
+                                               float theta, float phi, float lam) {
+  const float sin_t = sinf(theta * 0.5f), cos_t = cosf(theta * 0.5f);
+  const float pl = __fadd_rn(phi, lam);
+  const float u00r = cos_t, u00i = 0.0f;
+  const float u01r = -cosf(lam) * sin_t, u01i = -sinf(lam) * sin_t;
+  const float u10r = cosf(phi) * sin_t, u10i = sinf(phi) * sin_t;
+  const float u11r = cosf(pl) * cos_t, u11i = sinf(pl) * cos_t;
+
+  const float r0 = re[i0], m0 = im[i0], r1 = re[i1], m1 = im[i1];
+  re[i0] = sum4(u00r, r0, -u00i, m0, u01r, r1, -u01i, m1);
+  im[i0] = sum4(u00r, m0, u00i, r0, u01r, m1, u01i, r1);
+  re[i1] = sum4(u11r, r1, -u11i, m1, u10r, r0, -u10i, m0);
+  im[i1] = sum4(u11r, m1, u11i, r1, u10r, m0, u10i, r0);
 }
 
 __device__ float block_sum(float value, float* shared) {

@@ -57,19 +57,8 @@ struct Genome {
   int n_qubits;
 };
 
-// ((a0 b0 + a1 b1) + a2 b2) + a3 b3 with every product and sum rounded on its
-// own (no FMA contraction): the plain version's order of operations
-// (sim/statevector.py::_apply_slot), so on the card a slot state equals its
-// plain version's bit for bit.
-__device__ __forceinline__ float sum4(float a0, float b0, float a1, float b1, float a2,
-                                      float b2, float a3, float b3) {
-  return __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1)), __fmul_rn(a2, b2)),
-                   __fmul_rn(a3, b3));
-}
-
-// Semantics of _apply_u3_slot (pallas_kernels.py:55-115) with the U3 entries
-// of _u3_entries (:44-52), computed with sinf/cosf as the plain version's
-// torch.sin/torch.cos compute them on the card.
+// Semantics of _apply_u3_slot (pallas_kernels.py:55-115); the pair update
+// (common.cuh::u3_pair_update) is the one the compacted-gate kernels share.
 __global__ void apply_slot(float* state, Genome g, int layer, int q, long long dim) {
   const int p = blockIdx.y;
   const int gi = p % g.genome_pop;
@@ -87,21 +76,8 @@ __global__ void apply_slot(float* state, Genome g, int layer, int q, long long d
   }
   const int ai = p % g.angle_pop;
   const float* a = g.angles + (((long long)ai * g.n_layers + layer) * g.n_qubits + q) * 3;
-  const float theta = a[0], phi = a[1], lam = a[2];
-  const float sin_t = sinf(theta * 0.5f), cos_t = cosf(theta * 0.5f);
-  const float pl = __fadd_rn(phi, lam);
-  const float u00r = cos_t, u00i = 0.0f;
-  const float u01r = -cosf(lam) * sin_t, u01i = -sinf(lam) * sin_t;
-  const float u10r = cosf(phi) * sin_t, u10i = sinf(phi) * sin_t;
-  const float u11r = cosf(pl) * cos_t, u11i = sinf(pl) * cos_t;
-
   float* re = state + (long long)p * 2 * dim;
-  float* im = re + dim;
-  const float r0 = re[i0], m0 = im[i0], r1 = re[i1], m1 = im[i1];
-  re[i0] = sum4(u00r, r0, -u00i, m0, u01r, r1, -u01i, m1);
-  im[i0] = sum4(u00r, m0, u00i, r0, u01r, m1, u01i, r1);
-  re[i1] = sum4(u11r, r1, -u11i, m1, u10r, r0, -u10i, m0);
-  im[i1] = sum4(u11r, m1, u11i, r1, u10r, m0, u10i, r0);
+  u3_pair_update(re, re + dim, i0, i1, a[0], a[1], a[2]);
 }
 
 // Probe angles of NFT step k: rows [0, P) shift the probed coordinate by

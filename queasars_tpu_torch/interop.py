@@ -17,7 +17,9 @@ port's objects:
   draw the same keys from then on;
 - a Pauli sum's plain ``(z, x, coeffs)`` arrays into a port
   :class:`PauliSum`, and grouped-measurement operands (the JAX package's
-  ``grouped_operands`` tuple) into port :class:`GroupedOperands`.
+  ``grouped_operands`` tuple) into port :class:`GroupedOperands`;
+- a compacted-gate list's arrays (the JAX package's ``CompactGates``
+  fields) into a port :class:`CompactGates`.
 
 :func:`individual_to_plain` reads only attributes that the JAX package's
 genome classes share with the port's, so it also turns a JAX individual into
@@ -40,8 +42,10 @@ from queasars_tpu_torch.genome.gates import (
 from queasars_tpu_torch.genome.individual import EVQEIndividual
 from queasars_tpu_torch.genome.packing import PackedPopulation
 from queasars_tpu_torch.paulis import PauliSum
+from queasars_tpu_torch.sim.compact_kernels import CompactGates
 from queasars_tpu_torch.sim.fold_pipeline import FoldPipeline
 from queasars_tpu_torch.sim.grouped_sampling import GroupedOperands, make_grouped_operands
+from queasars_tpu_torch.utils.device import resolve_device
 
 
 def packed_population_from_numpy(
@@ -192,4 +196,19 @@ def grouped_operands_from_numpy(rot_types, rot_angles, tables, const, device="cp
     return make_grouped_operands(
         np.asarray(rot_types), np.asarray(rot_angles), np.asarray(tables),
         np.float32(np.asarray(const)), device,
+    )
+
+
+def compact_gates_from_numpy(
+    qubits, controls, angle_index, boundaries, n_qubits: int, n_layers: int, device=None
+) -> CompactGates:
+    """A port :class:`CompactGates` on ``device`` (the card unless the caller
+    asks for the CPU) from the JAX package's ``CompactGates`` fields; the
+    largest count is read from ``boundaries`` on the host."""
+    device = resolve_device(device)
+    arrays = [np.asarray(a, dtype=np.int32) for a in (qubits, controls, angle_index, boundaries)]
+    return CompactGates(
+        *(torch.as_tensor(a, device=device) for a in arrays),
+        n_qubits=int(n_qubits), n_layers=int(n_layers),
+        max_count=int(arrays[3][:, -1].max(initial=0)),
     )

@@ -61,6 +61,21 @@ def _apply_slot(state, q, gate_type, control, angles, layer_on, n_qubits):
     and CTRL slots and masked layers leave the state untouched; CROT acts
     where its (per-individual) control bit is 1.
     """
+    has_gate = ((gate_type == GATE_ROT) | (gate_type == GATE_CROT)) & layer_on
+    return apply_u3_pairs(
+        state, q, u3_entries(angles), has_gate, gate_type == GATE_CROT, control, n_qubits
+    )
+
+
+def apply_u3_pairs(state, q, entries, has_gate, crot, control, n_qubits):
+    """One U3 (or CU3) on target qubit ``q`` of each state [K, 2, 2^n], from
+    its entries (``u3_entries`` of [K] angle triples): the slot engine's
+    per-pair arithmetic, shared with the compacted-gate engine
+    (``sim/compact_kernels.py``) so that both round alike.
+
+    ``has_gate`` [K] bool leaves a state untouched where False; where
+    ``crot`` [K] is True the gate acts only where bit ``control`` [K] is 1.
+    """
     pop = state.shape[0]
     high = 1 << (n_qubits - 1 - q)
     low = 1 << q
@@ -68,7 +83,7 @@ def _apply_slot(state, q, gate_type, control, angles, layer_on, n_qubits):
     r0, m0 = v[:, 0, :, 0, :], v[:, 1, :, 0, :]
     r1, m1 = v[:, 0, :, 1, :], v[:, 1, :, 1, :]
     (u00r, u00i), (u01r, u01i), (u10r, u10i), (u11r, u11i) = (
-        (re[:, None, None], im[:, None, None]) for re, im in u3_entries(angles)
+        (re[:, None, None], im[:, None, None]) for re, im in entries
     )
     n0r = u00r * r0 - u00i * m0 + u01r * r1 - u01i * m1
     n0i = u00r * m0 + u00i * r0 + u01r * m1 + u01i * r1
@@ -76,7 +91,6 @@ def _apply_slot(state, q, gate_type, control, angles, layer_on, n_qubits):
     n1i = u11r * m1 + u11i * r1 + u10r * m0 + u10i * r0
     new = torch.stack([torch.stack([n0r, n1r], dim=2), torch.stack([n0i, n1i], dim=2)], dim=1)
 
-    has_gate = ((gate_type == GATE_ROT) | (gate_type == GATE_CROT)) & layer_on
     # control bit over the (high, low) grid of the bit-q-clear indices; a
     # CROT control is never its own target (genome validity)
     grid = (
@@ -84,7 +98,7 @@ def _apply_slot(state, q, gate_type, control, angles, layer_on, n_qubits):
         | torch.arange(low, device=state.device)[None, :]
     )
     ctrl_bit = (grid[None] >> control.clamp(min=0).long()[:, None, None]) & 1
-    active = has_gate[:, None, None] & ((gate_type != GATE_CROT)[:, None, None] | (ctrl_bit == 1))
+    active = has_gate[:, None, None] & ((~crot)[:, None, None] | (ctrl_bit == 1))
     return torch.where(active[:, None, :, None, :], new, v).reshape(state.shape)
 
 

@@ -1,5 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``: the slot and
-the fold kernels, with the shared headers ``csrc/*.cuh``).
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``: the slot, the
+fold and the compacted-gate kernels, with the shared headers ``csrc/*.cuh``).
 
 All sources are compiled by ONE ``nvcc`` call into a shared library with a
 plain C interface, loaded with ``ctypes``.  No PyTorch header is included,
@@ -56,6 +56,8 @@ SIGNATURES = {
     "qt_sample_planes": [_P] * 4 + [_I] * 3 + [_P],
     "qt_sampled_shot_indices_folded": [_P] * 15 + [_I] * 5 + [_P],
     "qt_grouped_shot_indices_folded": [_P] * 20 + [_I] * 5 + [_P],
+    "qt_compact_energies_exact": [_P] * 9 + [_I] * 5 + [_P],
+    "qt_compact_probs": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 

@@ -335,3 +335,32 @@ def test_grouped_kernel_matches_plain_version_and_per_group_route(cuda_device, n
     assert torch.equal(single[0], fk.sampled_shot_indices_folded(pipeline, frac, n_qubits, initial))
     torch.cuda.synchronize()
     assert fk.launch_counts["grouped_shot_indices_folded"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits", [14, 20, 21])
+def test_compact_kernels_match_plain_versions_and_the_slot_kernels(cuda_device, n_qubits):
+    """Rows 12-13 against their plain versions, and bit for bit equal to the
+    slot kernels (rows 1 and 4) on the same genome and on a repeat."""
+    from queasars_tpu_torch.sim import compact_kernels as ck
+
+    gt, ctrl, ang, mask = _genomes(n_qubits, 3, 4, n_qubits, cuda_device)
+    gen = torch.Generator(device="cpu").manual_seed(n_qubits)
+    table = (torch.randn(1 << n_qubits, generator=gen) * 30).to(cuda_device)
+    compact = ck.compact_gates(gt, ctrl, mask, n_qubits, device=cuda_device)
+    assert compact.qubits.device.type == "cuda"
+    ck.reset_launch_counts()
+    probs = ck.compact_probs(compact, ang)
+    energies = ck.compact_energies_exact(compact, ang, table)
+    torch.cuda.synchronize()
+    assert ck.launch_counts == {"compact_energies_exact": 1, "compact_probs": 1}
+    plain_probs = ck.compact_probs_plain(compact, ang)
+    # 1e-5 of the largest probability: the mean one is 2^-n
+    torch.testing.assert_close(probs, plain_probs, atol=1e-5 * float(plain_probs.max()), rtol=0)
+    tol = 1e-5 * float(table.abs().max())
+    torch.testing.assert_close(
+        energies, ck.compact_energies_exact_plain(compact, ang, table), atol=tol, rtol=0)
+    assert torch.equal(probs, sk.population_probs(gt, ctrl, ang, mask, n_qubits))
+    assert torch.equal(energies, sk.energies_exact(gt, ctrl, ang, mask, table, n_qubits))
+    assert torch.equal(probs, ck.compact_probs(compact, ang))
+    assert torch.equal(energies, ck.compact_energies_exact(compact, ang, table))
