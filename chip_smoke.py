@@ -10,8 +10,9 @@ with elapsed seconds:
 
 1. device: the card's name and power limit, TF32 matmuls off;
 2. build: the CUDA kernels (``queasars_tpu_torch/csrc/*.cu``: slot, fold
-   and compacted-gate kernels) with one nvcc call, printing its command,
-   seconds and ``-Xptxas -v`` lines;
+   and compacted-gate kernels), one nvcc process per source started
+   together and one link, printing the commands, seconds and
+   ``-Xptxas -v`` lines;
 3. slot kernels at full width (n=20): every slot kernel against its plain
    PyTorch version on the same inputs on the card, timed with CUDA events;
 4. fold kernels at the same shapes: every fold kernel against its plain
@@ -325,7 +326,10 @@ def phase_build():
     from queasars_tpu_torch.utils import cuda_lib
 
     info = cuda_lib.build()
-    say(f"phase build: {info.seconds:.2f} s: {' '.join(info.command)}")
+    say(f"phase build: {info.seconds:.2f} s, {len(info.commands) - 1} nvcc compiles in parallel "
+        "and one link:")
+    for command in info.commands:
+        print(f"    {' '.join(command)}", flush=True)
     for line in info.ptxas:
         print(f"    ptxas: {line}", flush=True)
     cuda_lib.load()
@@ -368,15 +372,27 @@ def draw_agreement(probs, u_frac, got, want, rel=1e-5):
     return float(same.double().mean()), int(bad.sum())
 
 
-def fold_flops(pipeline, n_qubits) -> float:
-    """FLOPs of the fold kernels' own group products for a pipeline: 8 per
-    complex multiply-add, 2^n * S of them per active group and individual
-    (for information; the bounds count the slot route's work)."""
-    from queasars_tpu_torch.sim.fold_pipeline import group_bounds
+def engine_bytes(pipeline, n_qubits, rotated=()) -> int:
+    """Plane traffic of the fold engine's circuit by its design's rule
+    (n > 13): two passes per kron layer and individual where the layer has
+    work (an active axis group, or a phase after it), each reading and
+    writing the [2, 2^n] float32 planes.  A pass whose own part of the
+    layer is idle skips, so this may count more than moves.  ``rotated``:
+    the grouped sampler's pipelines extended by each rotated group's layer;
+    each adds its rotation layer's passes."""
+    work = pipeline.group_active.bool().any(dim=2)
+    work[:, :-1] |= (pipeline.diag_count + pipeline.abs_count) > 0
+    circuit = int(work.sum()) * 2 * 2 * (8 << n_qubits)
+    return circuit + sum(engine_bytes(ext, n_qubits) - circuit for ext in rotated)
 
-    sizes = [1 << m for _, m in group_bounds(n_qubits)]
-    active = pipeline.group_active.sum(dim=(0, 1)).tolist()
-    return 8.0 * (1 << n_qubits) * sum(a * size for a, size in zip(active, sizes))
+
+def engine_rate(name, pipeline, n_qubits, ms, rotated=()) -> str:
+    """The fold engine's bytes for one call (``engine_bytes``) and those
+    bytes over the call's measured time."""
+    moved = engine_bytes(pipeline, n_qubits, rotated)
+    rate = moved / ms * 1e3
+    return (f"{name}: engine {moved / 1e9:.4f} GB per call in {ms:.3f} ms, {rate / 1e9:.1f} GB/s "
+            f"({rate / PEAK_BYTES_PER_S:.1%} of 3.35 TB/s)")
 
 
 class Workload:
@@ -569,9 +585,7 @@ def phase_fold_kernels(w):
 
     pre_pipe, suf_pipe, full_pipe = pipeline(pmask), pipeline(smask), pipeline(mask)
     say(f"  fold pipelines: absorbed phases {int(full_pipe.abs_count.sum())}, diagonal-pass "
-        f"phases {int(full_pipe.diag_count.sum())}; group FLOPs per call: prefix "
-        f"{fold_flops(pre_pipe, n):.3e}, suffix {fold_flops(suf_pipe, n):.3e}, full "
-        f"{fold_flops(full_pipe, n):.3e}")
+        f"phases {int(full_pipe.diag_count.sum())}")
 
     # states: the prefix states of a last-layer search
     prefix = fk.population_states_folded(pre_pipe, n)
@@ -613,8 +627,8 @@ def phase_fold_kernels(w):
                 sk.energies_exact(bgt, bctrl, bang, bmask, btable, n), btol, records)
     bench_ms = time_ms(lambda: fk.energies_exact_folded(bench_pipe, btable, n), 5)
     say(f"  energies_exact_folded bench [{bgt.shape[0]}, L={bgt.shape[1]}]: {bench_ms:.3f} ms "
-        f"(bound {bounds['bench'][0]:.3f} ms, {bounds['bench'][1]}; group FLOPs "
-        f"{fold_flops(bench_pipe, n):.3e})")
+        f"(bound {bounds['bench'][0]:.3f} ms, {bounds['bench'][1]})")
+    say("  " + engine_rate("energies_exact_folded bench", bench_pipe, n, bench_ms))
     records["energies_exact_folded"].update(
         ms=time_ms(lambda: fk.energies_exact_folded(suf_pipe, table, n, prefix), 5),
         plain_ms=time_ms(lambda: fk.energies_exact_folded_plain(suf_pipe, table, n, prefix), 2),
@@ -654,6 +668,10 @@ def phase_fold_kernels(w):
     )
     say(f"  nft_layer_sweep_folded: mean energy {float(e_k.mean()):.4f} from "
         f"{float(w.full_energies(w.ang1).mean()):.4f}")
+    for name, pipe in (("population_states_folded", pre_pipe),
+                       ("energies_exact_folded", suf_pipe),
+                       ("population_probs_folded", full_pipe)):
+        say("  " + engine_rate(name, pipe, n, records[name]["ms"]))
     return finish_records(records, bounds)
 
 
@@ -760,11 +778,14 @@ def phase_sampled_kernels(w):
                 ms=time_ms(lambda: fk.sampled_shot_indices_folded(pipe, frac, n), 5),
                 plain_ms=time_ms(lambda: fk.sampled_shot_indices_folded_plain(pipe, frac, n), 2),
             )
+            say("  " + engine_rate("sampled_shot_indices_folded from |0>", pipe, n,
+                                   records["sampled_shot_indices_folded"]["ms"]))
         else:
             slot_ms = time_ms(lambda: sk.sampled_shot_indices(gt, ctrl, ang, m, frac, n, start), 5)
             fold_ms = time_ms(lambda: fk.sampled_shot_indices_folded(pipe, frac, n, start), 5)
             say(f"  sampled from prefix (the searches' shape): slot {slot_ms:.3f} ms, "
                 f"fold {fold_ms:.3f} ms")
+            say("  " + engine_rate("sampled_shot_indices_folded from prefix", pipe, n, fold_ms))
 
     # the epilogue alone, beside the two-call flat sampler on the same
     # probabilities (torch.cumsum then torch.searchsorted)
@@ -942,6 +963,9 @@ def phase_grouped_kernels(w):
                 for g in range(n_groups)], 3)
             say(f"  grouped {op_name} {label}: kernel {kernel_ms:.3f} ms, per-group folded "
                 f"route {per_group_ms:.3f} ms")
+            rotated = [extended[g] for g in range(n_groups) if ops.rotate[g]]
+            say("  " + engine_rate(f"grouped {op_name} {label} (circuit and rotations)", base, n,
+                                   kernel_ms, rotated))
             if op_name == "TFIM" and start is None:
                 records[name].update(
                     ms=kernel_ms, per_group_ms=per_group_ms,

@@ -5,7 +5,7 @@
 // pallas_population_states_folded, pallas_nft_layer_sweep_folded,
 // pallas_population_probs_folded, pallas_sampled_shot_energies_folded,
 // pallas_grouped_shot_energies_folded).
-// Built with the slot kernels by one nvcc call and bound with ctypes
+// Built with the slot kernels and bound with ctypes
 // (queasars_tpu_torch/utils/cuda_lib.py); every entry point takes raw device
 // pointers plus the caller's stream, launches on that stream, never
 // synchronises, allocates nothing and returns cudaGetLastError().
@@ -17,38 +17,63 @@
 // bit q.
 //
 // Design.  A TPU program holds a whole state in VMEM and applies a kron layer
-// as one MXU matmul per 7-qubit axis group.  Here a state (8 MB at n=20) lives
-// in device memory and a group apply is a batched complex GEMM in fp32 on the
-// CUDA cores (no TF32: the 1e-5 gate):
-//   * group apply: for the group's bits [q0, q0+m) (S = 2^m <= 128), out[hi, i,
-//     lo] = sum_j U[i, j] x[hi, j, lo] with U[i, j] = d_i prod_q A_q[bit_q(i),
-//     bit_q(j)] (d_i: the absorbed same-group phases, a row scale).  A block
-//     owns TC whole columns (hi, lo) of one individual: it streams them in
-//     chunks of JC rows through shared memory next to the matching U chunk,
-//     which it builds from the 2x2 factors itself (about 1/(2 TC) of its FMAs),
-//     keeps a 32-entry complex register tile per thread, and writes the
-//     columns back in place once every row has been read.  A block whose
-//     group is inactive in that kron layer returns at once.  Bound: FP32 FMAs
-//     (2^n * S complex multiply-adds per active group and individual, ~1 GFLOP
-//     at n=20, S=128), not bytes (two passes over 16 MB per group).
-//   * diagonal pass: one thread per amplitude applies the layer's compacted
-//     CDiag phases where the control bit is set (bytes-bound).
+// as one dense MXU matmul per 7-qubit axis group, which the MXU makes cheap.
+// In fp32 on the H100's CUDA cores (no TF32: the 1e-5 gate) that dense form
+// costs 2^n * S complex multiply-adds per group, ~10x the layer's 2x2
+// factors.  So one circuit engine (run_folded) applies every kron layer
+// factor by factor, in the plain version's qubit order (qubit 0 first), as
+// passes over tiles of 2^13 amplitudes (64 KB of re/im planes in dynamic
+// shared memory; 256 threads; two tiles per SM, so one loads or stores
+// while the other computes):
+//   * pass A, the low tile: a block owns 2^min(n, 13) contiguous amplitudes
+//     of one individual (bits 0-12) and applies their factors.  At n <= 13
+//     the tile is the whole state: one launch applies every kron layer and
+//     every phase with the state resident in shared memory.
+//   * pass B, the top tile (n > 13): a tile holds the 2^(n-13) values of
+//     bits 13..n-1 (the 8-bit top group of n=22 natively, with bit 13) for
+//     a contiguous run of 2^(26-n) >= 16 low amplitudes (64 bytes, whole
+//     sectors).  It applies those factors, then every phase of the layer:
+//     the absorbed slots and the diagonal pass (each CDiag slot whose control
+//     bit is set, with the phase its target bit selects).  Phases are
+//     diagonal and come after all of the layer's factors.
+//   * rounds: thread t holds 32 amplitudes in registers, the 2^5 values of
+//     five consecutive tile bits, and applies those bits' 2x2 factors there
+//     (8 FMAs per amplitude and factor); threads exchange through shared
+//     memory between rounds (3 rounds for 13 bits, 1-2 for a top).  The tile
+//     is XOR-swizzled by 32-float groups (i ^ ((i >> 5) & 31)), so no
+//     round's shared-memory access has a bank conflict.  A launch's first
+//     round loads from device memory and its last stores there directly; a
+//     one-round pass (a top of at most 5 bits) uses no shared memory at all.
+//   * skips: a pass whose axis groups are inactive in that kron layer and
+//     that has no phase to apply returns at once, as does a round whose
+//     factors are all the identity.  The first pass with work reads the
+//     start state (initial, or |0...0> made in registers) and the later ones
+//     work in place, so no copy-in pass runs; if no pass has work, the last
+//     one copies.  The sweep's exclude (its REST) turns the probed qubit's
+//     factors into the identity and skips its CDiag slot.  Nothing is
+//     absorbed into the 8-bit top group at n=22 (the pipeline's rule).
+//   * bound: device-memory bytes and fp32 instructions about equally: each
+//     pass reads and writes the planes once (16 MB per individual at n=20),
+//     and a layer's 20 factors cost 160 FMAs per amplitude.  Running every
+//     pass of a few individuals while their planes sit in L2 measured slower
+//     than the plain pass order (PERF.md), so passes run layer by
+//     layer over the whole population.  Loads go straight to registers:
+//     staging a tile with cp.async measured no faster, and a second
+//     buffer to prefetch the next tile leaves room for one block per SM,
+//     which measured slower (PERF.md).
 //   * epilogues: probabilities, the planes themselves, the energy through
 //     the fixed-order two-pass reduction of common.cuh (no float atomics), or
 //     sampled shot indices through the hierarchical inverse CDF of
 //     sampler.cuh.  The TPU ran its sampled kernel at single-pass bf16
 //     (precision="default"); here it runs in fp32 like every fold kernel,
 //     closer to the exact state.
-//   * grouped sampler: the circuit runs once into a work buffer; then, per QWC
-//     measurement group, the work planes are copied into a second buffer, the
-//     group's rotation kron layer is applied there by the same apply_group<M>
-//     launches a circuit's kron layer uses (inactive axis groups exit at
-//     once), and the epilogue samples that group's shots.  A group with no
-//     rotation (a Z-basis group) samples the work planes themselves.  The
-//     arithmetic per group is that of the sampled kernel on the circuit with
-//     the rotation layer appended, so both give equal bits.  The TPU kernel
-//     keeps the base state in VMEM and restores it per group; here the copy
-//     costs one more pass over the planes per rotated group.
+//   * grouped sampler: the circuit runs once into a work buffer; then, per
+//     rotated QWC measurement group, the group's rotation kron layer runs
+//     through the same passes out of place, from the work planes into a
+//     second buffer, and the epilogue samples that group's shots.  A group
+//     with no rotation (a Z-basis group) samples the work planes themselves.
+//     The sampled kernel on the pipeline extended by that rotation layer
+//     runs the same rounds on the same values, so both give equal bits.
 //   * NFT sweep: the step loop runs on the host side of this library and only
 //     enqueues launches.  Per step: BASE = REST . prefix (the swept layer with
 //     the probed qubit's factors and CDiag slot replaced by the identity), nine
@@ -56,9 +81,6 @@
 //     fixed order, then one thread per individual forms z1 and z3 (and z0 on
 //     reset steps) as scalar combinations of the sums, applies the 3-point
 //     update with atan2f and rebuilds that qubit's factors.
-//
-// Tensor cores (3xTF32 wgmma), TMA staging and shared-memory-resident low
-// groups are later work.
 
 #include <cuda_runtime.h>
 
@@ -70,7 +92,13 @@ namespace {
 constexpr int kGateRot = 1;
 constexpr int kGateCrot = 3;
 constexpr int kLaneBits = 7;
-constexpr int kGroupThreads = 256;
+constexpr int kTileBits = 13;                                  // a tile: 2^13 amplitudes
+constexpr int kTileBlocks = 2;                                 // resident tiles per SM
+constexpr int kRegBits = 5;                                    // a round: 2^5 per thread
+constexpr int kRegs = 1 << kRegBits;
+constexpr int kTileThreads = 1 << (kTileBits - kRegBits);      // 256
+constexpr int kTileSmem = (int)(2 * sizeof(float)) << kTileBits;  // 64 KB
+constexpr int kMaxSlots = 11;  // CDiag slots of one layer (absorbed and not): at most n / 2
 constexpr int kPairSums = 9;
 constexpr float kHalfPi = 1.57079632679489662f;
 constexpr float kPi = 3.14159265358979324f;
@@ -95,227 +123,336 @@ struct Fold {
   int n_groups;
 };
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// Tile shape of a group apply with S = 2^M rows: RT x CT threads, each with
-// RPT rows x CPT columns of accumulators (32 complex values), TC columns per
-// block, JC rows per shared-memory chunk.
-template <int M>
-struct GroupShape {
-  static constexpr int S = 1 << M;
-  static constexpr int RT = S < 16 ? S : 16;
-  static constexpr int CT = kGroupThreads / RT;
-  static constexpr int RPT = S / RT;
-  static constexpr int CPT = (32 / RPT) < (512 / CT) ? (32 / RPT) : (512 / CT);
-  static constexpr int TC = CT * CPT;
-  static constexpr int JC0 = S < 16 ? S : 16;
-  static constexpr int JC = JC0 < (2048 / TC) ? JC0 : (2048 / TC);
+// One pass of the engine over tiles of every individual's planes.  Local bit
+// l of a tile is global bit l below low_bits and global bit l + mid_bits
+// above; the tile index fills the mid_bits global bits in between.
+struct Pass {
+  int which;              // 0: the low tile (the whole state when n <= 13); 1: the top
+  int tile_bits;          // a tile holds 2^tile_bits amplitudes
+  int low_bits, mid_bits;
+  int lb_first, lb_last;  // local bits of the qubits the pass applies
+  int g_first, g_last;    // their axis groups
+  int phases;             // 1: it applies the layer's phases (absorbed slots, diagonal pass)
 };
 
-// One kron layer's group apply on bits [q0, q0 + M) of every active
-// individual's state, in place.  ``absorb`` row-scales U by the layer's
-// absorbed CDiag phases (set only when [q0, q0 + M) is the whole group).
-// Semantics of _build_group_fold / _absorb_group_rows / _apply_kron_layer
-// (pallas_fold_kernels.py:110-316).
-template <int M>
-__global__ void __launch_bounds__(kGroupThreads)
-    apply_group(float* state, Fold f, int k, int g, int q0, int absorb) {
-  using Shape = GroupShape<M>;
-  constexpr int S = Shape::S, RT = Shape::RT, CT = Shape::CT, RPT = Shape::RPT;
-  constexpr int CPT = Shape::CPT, TC = Shape::TC, JC = Shape::JC;
-  const int p = blockIdx.y;
-  if (f.group_active[((long long)p * f.n_kron + k) * f.n_groups + g] == 0) return;
-
-  __shared__ float2 fac_s[M][4];
-  __shared__ float2 row_s[S];
-  __shared__ float2 u_s[JC][S];
-  __shared__ float2 x_s[JC][TC + 1];
-
-  const int n = f.n_qubits;
-  const int t = threadIdx.x;
-  const long long dim = 1LL << n;
-  const long long low = 1LL << q0;
-  const long long n_cols = dim >> M;
-  const long long c0 = (long long)blockIdx.x * TC;
-  float* re = state + (long long)p * 2 * dim;
-  float* im = re + dim;
-
-  const int excl = f.exclude != nullptr ? f.exclude[p] : -1;
-  if (t < M * 4) {
-    const int jq = t >> 2, e = t & 3;  // e = bi * 2 + bj
-    const int q = q0 + jq;
-    const float* a = f.factors + (((long long)p * f.n_kron + k) * n + q) * 8;
-    float2 v = make_float2(a[e], a[4 + e]);
-    if (q == excl) v = make_float2((e == 0 || e == 3) ? 1.0f : 0.0f, 0.0f);
-    fac_s[jq][e] = v;
+__host__ __device__ Pass make_pass(int n, int which) {
+  Pass ps{};
+  ps.which = which;
+  ps.tile_bits = n < kTileBits ? n : kTileBits;
+  if (which == 0) {
+    ps.low_bits = ps.tile_bits;
+    ps.mid_bits = n - ps.tile_bits;
+    ps.lb_first = 0;
+    ps.lb_last = ps.tile_bits;
+    ps.g_first = 0;
+    ps.g_last = (ps.tile_bits - 1) / kLaneBits;
+    ps.phases = n <= kTileBits ? 1 : 0;
+  } else {
+    ps.mid_bits = n - kTileBits;
+    ps.low_bits = kTileBits - ps.mid_bits;
+    ps.lb_first = ps.low_bits;
+    ps.lb_last = kTileBits;
+    ps.g_first = kTileBits / kLaneBits;
+    ps.g_last = 2;
+    ps.phases = 1;
   }
-  for (int i = t; i < S; i += kGroupThreads) {
-    float2 d = make_float2(1.0f, 0.0f);
-    if (absorb) {
-      const long long base = (long long)p * (f.n_kron - 1) + k;
-      const int count = f.abs_count[base];
-      for (int j = 0; j < count; ++j) {
-        const long long slot = base * f.d_slots + j;
-        const int c = f.abs_ctrl[slot], tq = f.abs_tgt[slot];
-        if (c < q0 || c >= q0 + M || ((i >> (c - q0)) & 1) == 0) continue;
-        const int tl = min(max(tq - q0, 0), M - 1);
-        const float* ph = f.abs_phase + (slot * 2 + ((i >> tl) & 1)) * 2;
-        d = cmul(d, make_float2(ph[0], ph[1]));
-      }
+  return ps;
+}
+
+// True when pass ps has work in kron layer k of individual p: an active axis
+// group of its own, or a phase to apply after the layer.
+__device__ bool pass_work(const Fold& f, const Pass& ps, int p, int k) {
+  const int* active = f.group_active + ((long long)p * f.n_kron + k) * f.n_groups;
+  for (int g = ps.g_first; g <= ps.g_last && g < f.n_groups; ++g) {
+    if (active[g] != 0) return true;
+  }
+  if (!ps.phases || k >= f.n_kron - 1) return false;
+  const long long layer = (long long)p * (f.n_kron - 1) + k;
+  return f.diag_count[layer] > 0 || (f.abs_count != nullptr && f.abs_count[layer] > 0);
+}
+
+// A CDiag slot as a pass applies it: where bit ctrl is 1, multiply by
+// (ph[0], ph[1]) or, where bit tgt is 1, by (ph[2], ph[3]).
+struct Slot {
+  int ctrl, tgt;
+  float ph[4];
+};
+
+// Thread t's amplitude j in a round over the tile bits [s, s + 5): t fills
+// the other bits from the lowest up, so lanes of a warp run along bits 0-4
+// (or 5-9 when s = 0).
+__device__ __forceinline__ int round_index(int t, int s, int j) {
+  return (t & ((1 << s) - 1)) | ((t >> s) << (s + kRegBits)) | (j << s);
+}
+
+__device__ __forceinline__ int swizzle(int i) { return i ^ ((i >> kRegBits) & (kRegs - 1)); }
+
+__device__ __forceinline__ int global_index(const Pass& ps, int tile, int li) {
+  return (li & ((1 << ps.low_bits) - 1)) | (tile << ps.low_bits) |
+         ((li >> ps.low_bits) << (ps.low_bits + ps.mid_bits));
+}
+
+// Bit q (a global qubit) of amplitude j of a round over [s, s + 5) whose
+// amplitude 0 is local index base: (j >> shift) & 1 when shift >= 0, else
+// value for every j.
+struct BitOf {
+  int shift, value;
+};
+
+__device__ __forceinline__ BitOf bit_of(const Pass& ps, int tile, int base, int s, int q) {
+  int l = q;
+  if (q >= ps.low_bits) {
+    if (q < ps.low_bits + ps.mid_bits) return BitOf{-1, (tile >> (q - ps.low_bits)) & 1};
+    l = q - ps.mid_bits;
+  }
+  if (l >= s && l < s + kRegBits) return BitOf{l - s, 0};
+  return BitOf{-1, (base >> l) & 1};
+}
+
+// The 2x2 factor m ([re 00 01 10 11, im 00 01 10 11]) on register bit B.
+template <int B>
+__device__ __forceinline__ void apply_factor(float (&xr)[kRegs], float (&xi)[kRegs],
+                                             const float* m) {
+  const float ar = m[0], br = m[1], cr = m[2], dr = m[3];
+  const float ai = m[4], bi = m[5], ci = m[6], di = m[7];
+#pragma unroll
+  for (int j = 0; j < kRegs; ++j) {
+    if (j & (1 << B)) continue;
+    const int j1 = j | (1 << B);
+    const float r0 = xr[j], i0 = xi[j], r1 = xr[j1], i1 = xi[j1];
+    xr[j] = ar * r0 - ai * i0 + br * r1 - bi * i1;
+    xi[j] = ar * i0 + ai * r0 + br * i1 + bi * r1;
+    xr[j1] = cr * r0 - ci * i0 + dr * r1 - di * i1;
+    xi[j1] = cr * i0 + ci * r0 + dr * i1 + di * r1;
+  }
+}
+
+// Tile bit s + B's factor when that bit is in [lo, hi) and active.
+template <int B>
+__device__ __forceinline__ void round_factor(float (&xr)[kRegs], float (&xi)[kRegs], int s,
+                                             int lo, int hi, const int* qact, const float* fac) {
+  const int l = s + B;
+  if (l >= lo && l < hi && qact[l] != 0) apply_factor<B>(xr, xi, fac + 8 * l);
+}
+
+__device__ __forceinline__ void apply_phases(float (&xr)[kRegs], float (&xi)[kRegs],
+                                             const Slot* slots, int n_slots, const Pass& ps,
+                                             int tile, int base, int s) {
+  for (int k = 0; k < n_slots; ++k) {
+    const Slot& slot = slots[k];
+    const BitOf c = bit_of(ps, tile, base, s, slot.ctrl);
+    if (c.shift < 0 && c.value == 0) continue;
+    const BitOf tb = bit_of(ps, tile, base, s, slot.tgt);
+#pragma unroll
+    for (int j = 0; j < kRegs; ++j) {
+      if (c.shift >= 0 && ((j >> c.shift) & 1) == 0) continue;
+      const int sel = tb.shift >= 0 ? (j >> tb.shift) & 1 : tb.value;
+      const float pr = sel ? slot.ph[2] : slot.ph[0], pi = sel ? slot.ph[3] : slot.ph[1];
+      const float r = xr[j], m = xi[j];
+      xr[j] = pr * r - pi * m;
+      xi[j] = pr * m + pi * r;
     }
-    row_s[i] = d;
+  }
+}
+
+// A round's amplitudes from device memory (re == null: |0...0>).  At s = 0
+// they are 32 consecutive floats of each plane.
+__device__ __forceinline__ void load_global(float (&xr)[kRegs], float (&xi)[kRegs],
+                                            const float* re, const float* im, const Pass& ps,
+                                            int tile, int base, int s) {
+  if (re == nullptr) {
+#pragma unroll
+    for (int j = 0; j < kRegs; ++j) {
+      xr[j] = global_index(ps, tile, base | (j << s)) == 0 ? 1.0f : 0.0f;
+      xi[j] = 0.0f;
+    }
+  } else if (s == 0) {
+    const int g = global_index(ps, tile, base);
+    const float4* r4 = reinterpret_cast<const float4*>(re + g);
+    const float4* i4 = reinterpret_cast<const float4*>(im + g);
+#pragma unroll
+    for (int c = 0; c < kRegs / 4; ++c) {
+      const float4 a = r4[c], b = i4[c];
+      xr[4 * c] = a.x, xr[4 * c + 1] = a.y, xr[4 * c + 2] = a.z, xr[4 * c + 3] = a.w;
+      xi[4 * c] = b.x, xi[4 * c + 1] = b.y, xi[4 * c + 2] = b.z, xi[4 * c + 3] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRegs; ++j) {
+      const int g = global_index(ps, tile, base | (j << s));
+      xr[j] = re[g];
+      xi[j] = im[g];
+    }
+  }
+}
+
+__device__ __forceinline__ void store_global(const float (&xr)[kRegs], const float (&xi)[kRegs],
+                                             float* re, float* im, const Pass& ps, int tile,
+                                             int base, int s) {
+  if (s == 0) {
+    const int g = global_index(ps, tile, base);
+    float4* r4 = reinterpret_cast<float4*>(re + g);
+    float4* i4 = reinterpret_cast<float4*>(im + g);
+#pragma unroll
+    for (int c = 0; c < kRegs / 4; ++c) {
+      r4[c] = make_float4(xr[4 * c], xr[4 * c + 1], xr[4 * c + 2], xr[4 * c + 3]);
+      i4[c] = make_float4(xi[4 * c], xi[4 * c + 1], xi[4 * c + 2], xi[4 * c + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kRegs; ++j) {
+      const int g = global_index(ps, tile, base | (j << s));
+      re[g] = xr[j];
+      im[g] = xi[j];
+    }
+  }
+}
+
+// Kron layers [k_begin, k_end) of pass ps on tile blockIdx.x of individual
+// blockIdx.y: each layer's factors round by round, then the phases the pass
+// carries (semantics of _apply_kron_layer and _apply_diag_pass,
+// pallas_fold_kernels.py:202-383).  The planes go from src (null: |0...0>)
+// to dst when no earlier pass of the run had work for this individual, else
+// dst is updated in place; ``last`` marks the run's last launch.
+__global__ void __launch_bounds__(kTileThreads, kTileBlocks)
+    fold_pass(float* dst, const float* src, Fold f, Pass ps, int k_begin, int k_end, int last) {
+  extern __shared__ float tile_s[];  // re then im, 2^tile_bits each, swizzled
+  __shared__ float fac_s[kTileBits][8];
+  __shared__ int qact_s[kTileBits];
+  __shared__ Slot slot_s[kMaxSlots];
+  __shared__ int n_slots_s, mode_s;
+
+  const int p = blockIdx.y, tile = blockIdx.x, t = threadIdx.x;
+  const int n = f.n_qubits;
+  const long long dim = 1LL << n;
+  const int excl = f.exclude != nullptr ? f.exclude[p] : -1;
+  if (t == 0) {
+    const Pass low = make_pass(n, 0), top = make_pass(n, 1);
+    const bool split = n > kTileBits;
+    bool earlier = false;
+    for (int k = 0; k < k_begin && !earlier; ++k) {
+      earlier = pass_work(f, low, p, k) || (split && pass_work(f, top, p, k));
+    }
+    if (ps.which == 1 && !earlier) earlier = pass_work(f, low, p, k_begin);
+    bool work = false;
+    for (int k = k_begin; k < k_end && !work; ++k) work = pass_work(f, ps, p, k);
+    const bool fill = !earlier && last != 0 && src != dst;
+    mode_s = (work || fill ? 1 : 0) | (earlier ? 0 : 2);
   }
   __syncthreads();
+  const int mode = mode_s;
+  if ((mode & 1) == 0) return;
+  const float* in = (mode & 2) != 0 ? src : dst;
+  const float* in_re = in != nullptr ? in + (long long)p * 2 * dim : nullptr;
+  const float* in_im = in != nullptr ? in_re + dim : nullptr;
+  float* out_re = dst + (long long)p * 2 * dim;
+  float* out_im = out_re + dim;
+  float* s_re = tile_s;
+  float* s_im = tile_s + (1 << ps.tile_bits);
 
-  // lane group (low == 1): a column is S contiguous amplitudes, so threads
-  // run along rows; otherwise neighbouring columns are neighbouring lo.
-  const bool lane_major = low == 1;
-  const int tr = lane_major ? t % RT : t / CT;
-  const int tc = lane_major ? t / RT : t % CT;
-
-  float2 acc[RPT][CPT];
-#pragma unroll
-  for (int a = 0; a < RPT; ++a)
-#pragma unroll
-    for (int b = 0; b < CPT; ++b) acc[a][b] = make_float2(0.0f, 0.0f);
-
-  for (int j0 = 0; j0 < S; j0 += JC) {
-    for (int e = t; e < JC * S; e += kGroupThreads) {
-      const int i = e % S, j = j0 + e / S;
-      float2 u = fac_s[0][((i & 1) << 1) | (j & 1)];
-#pragma unroll
-      for (int jq = 1; jq < M; ++jq) {
-        u = cmul(u, fac_s[jq][(((i >> jq) & 1) << 1) | ((j >> jq) & 1)]);
-      }
-      u_s[e / S][i] = cmul(u, row_s[i]);
+  const int n_chunks = (ps.lb_last - ps.lb_first + kRegBits - 1) / kRegBits;
+  float xr[kRegs], xi[kRegs];
+  bool first = true;
+  for (int k = k_begin; k < k_end; ++k) {
+    if (k > k_begin) __syncthreads();  // the last layer's rounds are done with its setup
+    const float* fk = f.factors + ((long long)p * f.n_kron + k) * n * 8;
+    const int* active = f.group_active + ((long long)p * f.n_kron + k) * f.n_groups;
+    for (int l = ps.lb_first + t; l < ps.lb_last; l += blockDim.x) {
+      const int q = l < ps.low_bits ? l : l + ps.mid_bits;
+      const float* a = fk + q * 8;
+      bool on = active[min(q / kLaneBits, f.n_groups - 1)] != 0 && q != excl;
+      on = on && !(a[0] == 1.0f && a[1] == 0.0f && a[2] == 0.0f && a[3] == 1.0f &&
+                   a[4] == 0.0f && a[5] == 0.0f && a[6] == 0.0f && a[7] == 0.0f);
+      for (int e = 0; e < 8; ++e) fac_s[l][e] = a[e];
+      qact_s[l] = on ? 1 : 0;
     }
-    for (int e = t; e < JC * TC; e += kGroupThreads) {
-      const int jj = lane_major ? e % JC : e / TC;
-      const int cc = lane_major ? e / JC : e % TC;
-      const long long c = c0 + cc;
-      float2 x = make_float2(0.0f, 0.0f);
-      if (c < n_cols) {
-        const long long idx = ((c >> q0) << (q0 + M)) + ((long long)(j0 + jj) << q0) + (c & (low - 1));
-        x = make_float2(re[idx], im[idx]);
-      }
-      x_s[jj][cc] = x;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int jj = 0; jj < JC; ++jj) {
-      float2 u[RPT], x[CPT];
-#pragma unroll
-      for (int a = 0; a < RPT; ++a) u[a] = u_s[jj][tr + RT * a];
-#pragma unroll
-      for (int b = 0; b < CPT; ++b) x[b] = x_s[jj][tc + CT * b];
-#pragma unroll
-      for (int a = 0; a < RPT; ++a) {
-#pragma unroll
-        for (int b = 0; b < CPT; ++b) {
-          acc[a][b].x = fmaf(u[a].x, x[b].x, fmaf(-u[a].y, x[b].y, acc[a][b].x));
-          acc[a][b].y = fmaf(u[a].x, x[b].y, fmaf(u[a].y, x[b].x, acc[a][b].y));
+    if (t == 0) {
+      int count = 0;
+      if (ps.phases && k < f.n_kron - 1) {
+        const long long layer = (long long)p * (f.n_kron - 1) + k;
+        const int abs_n = f.abs_count != nullptr ? f.abs_count[layer] : 0;
+        const int diag_n = f.diag_count[layer];
+        for (int j = 0; j < abs_n + diag_n && count < kMaxSlots; ++j) {
+          const bool absorbed = j < abs_n;
+          const long long slot = layer * f.d_slots + (absorbed ? j : j - abs_n);
+          const int c = absorbed ? f.abs_ctrl[slot] : f.diag_ctrl[slot];
+          const int tq = absorbed ? f.abs_tgt[slot] : f.diag_tgt[slot];
+          if (!absorbed && tq == excl) continue;
+          const float* ph = (absorbed ? f.abs_phase : f.diag_phase) + slot * 4;
+          slot_s[count] = Slot{c, tq, {ph[0], ph[1], ph[2], ph[3]}};
+          ++count;
         }
       }
+      n_slots_s = count;
     }
     __syncthreads();
-  }
-
+    const int n_slots = n_slots_s;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int lo = ps.lb_first + c * kRegBits;
+      const int hi = min(lo + kRegBits, ps.lb_last);
+      const int s = min(lo, ps.tile_bits - kRegBits);
+      const bool carrier = c == n_chunks - 1 && n_slots > 0;
+      const bool final_round = k == k_end - 1 && c == n_chunks - 1;
+      bool has = carrier;
+      for (int l = lo; l < hi; ++l) has = has || qact_s[l] != 0;
+      if (!has && !first && !final_round) continue;
+      const int base = round_index(t, s, 0);
+      if (first) {
+        load_global(xr, xi, in_re, in_im, ps, tile, base, s);
+      } else {
 #pragma unroll
-  for (int b = 0; b < CPT; ++b) {
-    const long long c = c0 + tc + CT * b;
-    if (c >= n_cols) continue;
-    const long long col = ((c >> q0) << (q0 + M)) + (c & (low - 1));
+        for (int j = 0; j < kRegs; ++j) {
+          const int i = swizzle(base | (j << s));
+          xr[j] = s_re[i];
+          xi[j] = s_im[i];
+        }
+      }
+      round_factor<0>(xr, xi, s, lo, hi, qact_s, &fac_s[0][0]);
+      round_factor<1>(xr, xi, s, lo, hi, qact_s, &fac_s[0][0]);
+      round_factor<2>(xr, xi, s, lo, hi, qact_s, &fac_s[0][0]);
+      round_factor<3>(xr, xi, s, lo, hi, qact_s, &fac_s[0][0]);
+      round_factor<4>(xr, xi, s, lo, hi, qact_s, &fac_s[0][0]);
+      if (carrier) apply_phases(xr, xi, slot_s, n_slots, ps, tile, base, s);
+      if (final_round) {
+        store_global(xr, xi, out_re, out_im, ps, tile, base, s);
+      } else {
 #pragma unroll
-    for (int a = 0; a < RPT; ++a) {
-      const long long idx = col + ((long long)(tr + RT * a) << q0);
-      re[idx] = acc[a][b].x;
-      im[idx] = acc[a][b].y;
+        for (int j = 0; j < kRegs; ++j) {
+          const int i = swizzle(base | (j << s));
+          s_re[i] = xr[j];
+          s_im[i] = xi[j];
+        }
+        __syncthreads();
+      }
+      first = false;
     }
   }
 }
 
-template <int M>
-void launch_group(float* state, const Fold& f, int pop, int k, int g, int q0, int absorb,
-                  cudaStream_t s) {
-  const long long n_cols = (1LL << f.n_qubits) >> M;
-  const dim3 grid(blocks_for(n_cols, GroupShape<M>::TC), pop);
-  apply_group<M><<<grid, kGroupThreads, 0, s>>>(state, f, k, g, q0, absorb);
-}
-
-void launch_group_bits(float* state, const Fold& f, int pop, int k, int g, int q0, int m,
-                       int absorb, cudaStream_t s) {
-  switch (m) {
-    case 1: launch_group<1>(state, f, pop, k, g, q0, absorb, s); break;
-    case 2: launch_group<2>(state, f, pop, k, g, q0, absorb, s); break;
-    case 3: launch_group<3>(state, f, pop, k, g, q0, absorb, s); break;
-    case 4: launch_group<4>(state, f, pop, k, g, q0, absorb, s); break;
-    case 5: launch_group<5>(state, f, pop, k, g, q0, absorb, s); break;
-    case 6: launch_group<6>(state, f, pop, k, g, q0, absorb, s); break;
-    default: launch_group<7>(state, f, pop, k, g, q0, absorb, s); break;
-  }
-}
-
-// Kron layer k: one group apply per axis group (lane q<7, row 7<=q<14, top
-// q>=14).  A top group of 8 bits (n=22) applies as two sub-kron factors of 4
-// bits; the pipeline absorbs no phase into it at that size.
-void apply_kron_layer(float* state, const Fold& f, int pop, int k, cudaStream_t s) {
-  const int absorb = (k < f.n_kron - 1 && f.abs_count != nullptr) ? 1 : 0;
-  for (int g = 0; g < f.n_groups; ++g) {
-    const int q0 = g * kLaneBits;
-    const int m = (g == f.n_groups - 1 ? f.n_qubits : q0 + kLaneBits) - q0;
-    if (m <= kLaneBits) {
-      launch_group_bits(state, f, pop, k, g, q0, m, absorb, s);
-    } else {
-      const int half = m / 2;
-      launch_group_bits(state, f, pop, k, g, q0, half, 0, s);
-      launch_group_bits(state, f, pop, k, g, q0 + half, m - half, 0, s);
-    }
-  }
-}
-
-// Layer k's controlled-diagonal phases: for each compacted slot, where the
-// control bit is 1, multiply by the phase the target bit selects
-// (_apply_diag_pass, pallas_fold_kernels.py:318-383).
-__global__ void diag_pass(float* state, Fold f, int k, long long dim) {
-  const int p = blockIdx.y;
-  const long long base = (long long)p * (f.n_kron - 1) + k;
-  const int count = f.diag_count[base];
-  if (count == 0) return;
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= dim) return;
-  const int excl = f.exclude != nullptr ? f.exclude[p] : -1;
-  float* re = state + (long long)p * 2 * dim;
-  float* im = re + dim;
-  float2 v = make_float2(re[i], im[i]);
-  bool changed = false;
-  for (int j = 0; j < count; ++j) {
-    const long long slot = base * f.d_slots + j;
-    const int c = f.diag_ctrl[slot], tq = f.diag_tgt[slot];
-    if (tq == excl || ((i >> c) & 1) == 0) continue;
-    const float* ph = f.diag_phase + (slot * 2 + ((i >> tq) & 1)) * 2;
-    v = cmul(make_float2(ph[0], ph[1]), v);
-    changed = true;
-  }
-  if (changed) {
-    re[i] = v.x;
-    im[i] = v.y;
-  }
-}
-
-// Start from |0...0> or initial, then every kron layer and diagonal pass.
-cudaError_t run_folded(float* state, const float* initial, int pop, const Fold& f,
-                       cudaStream_t s) {
-  const long long dim = 1LL << f.n_qubits;
-  cudaError_t err = init_states(state, initial, pop, dim, s);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(blocks_for(dim, kPairThreads), pop);
-  for (int k = 0; k < f.n_kron; ++k) {
-    apply_kron_layer(state, f, pop, k, s);
-    if (k < f.n_kron - 1) diag_pass<<<grid, kPairThreads, 0, s>>>(state, f, k, dim);
-  }
+cudaError_t launch_pass(float* dst, const float* src, int pop, const Fold& f, int which,
+                        int k_begin, int k_end, int last, cudaStream_t s) {
+  const Pass ps = make_pass(f.n_qubits, which);
+  const int chunks = (ps.lb_last - ps.lb_first + kRegBits - 1) / kRegBits;
+  const size_t smem = (k_end - k_begin) * chunks > 1 ? (2 * sizeof(float)) << ps.tile_bits : 0;
+  const dim3 grid(1u << ps.mid_bits, pop);
+  fold_pass<<<grid, 1 << (ps.tile_bits - kRegBits), smem, s>>>(dst, src, f, ps, k_begin, k_end,
+                                                                 last);
   return cudaGetLastError();
+}
+
+// The engine: every kron layer and diagonal pass of the pipeline f, from src
+// (initial planes [P, 2, 2^n], or null: |0...0>) into dst.  n <= 13: one
+// launch; otherwise passes A and B per kron layer.
+cudaError_t run_folded(float* dst, const float* src, int pop, const Fold& f, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(fold_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kTileSmem);
+  if (err != cudaSuccess) return err;
+  if (f.n_qubits <= kTileBits) return launch_pass(dst, src, pop, f, 0, 0, f.n_kron, 1, s);
+  for (int k = 0; k < f.n_kron && err == cudaSuccess; ++k) {
+    err = launch_pass(dst, src, pop, f, 0, k, k + 1, 0, s);
+    if (err == cudaSuccess) err = launch_pass(dst, src, pop, f, 1, k, k + 1, k == f.n_kron - 1, s);
+  }
+  return err;
 }
 
 Fold make_fold(const float* factors, const int* diag_ctrl, const int* diag_tgt,
@@ -624,7 +761,6 @@ int qt_grouped_shot_indices_folded(int* out, float* work, float* rotated, float*
                            abs_ctrl, abs_tgt, abs_phase, abs_count, n_kron, n_qubits, d_slots);
   cudaError_t err = run_folded(work, initial, pop, f, s);
   if (err != cudaSuccess) return (int)err;
-  const long long dim = 1LL << n_qubits;
   const long long layer_floats = (long long)pop * n_qubits * 8;
   const long long layer_groups = (long long)pop * f.n_groups;
   long long offset = 0;
@@ -632,13 +768,11 @@ int qt_grouped_shot_indices_folded(int* out, float* work, float* rotated, float*
     const float* planes = work;
     if (group_rotate[g] != 0) {
       if (rotated == nullptr) return (int)cudaErrorInvalidValue;
-      err = cudaMemcpyAsync(rotated, work, (size_t)pop * 2 * dim * sizeof(float),
-                            cudaMemcpyDeviceToDevice, s);
-      if (err != cudaSuccess) return (int)err;
       const Fold r = make_fold(rot_factors + g * layer_floats, nullptr, nullptr, nullptr, nullptr,
                                rot_active + g * layer_groups, nullptr, nullptr, nullptr, nullptr,
                                1, n_qubits, d_slots);
-      apply_kron_layer(rotated, r, pop, 0, s);
+      err = run_folded(rotated, work, pop, r, s);  // out of place: work stays the circuit's
+      if (err != cudaSuccess) return (int)err;
       planes = rotated;
     }
     err = sample_planes(planes, u_frac + offset, scratch, out + offset, pop, n_qubits,

@@ -2,8 +2,9 @@
 //
 // Counterparts of the five slot kernels of queasars_tpu/sim/pallas_kernels.py
 // (pallas_energies_exact, pallas_population_states, pallas_nft_layer_sweep,
-// pallas_population_probs, pallas_sampled_shot_energies).  Built by one nvcc call into a shared library and
-// bound with ctypes (queasars_tpu_torch/utils/cuda_lib.py); every entry point
+// pallas_population_probs, pallas_sampled_shot_energies).  Built with the
+// fold and compacted-gate kernels into one shared library and bound with
+// ctypes (queasars_tpu_torch/utils/cuda_lib.py); every entry point
 // takes raw device pointers plus the caller's stream, launches on that stream,
 // never synchronises, allocates nothing and returns cudaGetLastError().
 //

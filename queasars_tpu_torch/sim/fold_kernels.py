@@ -19,18 +19,21 @@ wrapper                               replaces (queasars_tpu/sim/
 ====================================  ===========================================
 
 The kernels live in ``queasars_tpu_torch/csrc/fold_kernels.cu``; its header
-says how they are laid out on the H100.  What bounds them: a kron layer
-applies as one complex group matrix per 7-qubit axis group, 2^n * S complex
-multiply-adds per active group (S = 2^7 at most), on the CUDA cores in fp32,
-so the group applies are bound by FP32 operations, not by their two passes
-over the state; the diagonal passes and epilogues are bound by bytes.  The
-TPU kernels' SMEM packing, VMEM chunking and bf16x3 limb emulation have no
-counterpart: the CUDA kernels read the pipeline tensors as they are and
-compute in fp32 (the TPU's sampled kernel ran single-pass bf16; here it is
-fp32 like the rest, closer to the exact state).  The sampled kernels end in
-the hierarchical inverse CDF shared with the slot sampler
-(``csrc/sampler.cuh``); the grouped one runs the circuit once and then, per
-QWC measurement group, that group's rotation kron layer and the epilogue.
+says how they are laid out on the H100.  One circuit engine carries all six:
+each kron layer is applied factor by factor (2x2 per qubit, qubit 0 first,
+the plain version's order) in at most two passes over tiles of 2^13
+amplitudes held in shared memory -- pass A over bits 0-12, pass B over bits
+13..n-1, which also applies the layer's controlled-diagonal phases -- so the
+engine is bound by the bytes of those passes and the arithmetic of its
+factors, no longer by dense group products.  The TPU kernels' SMEM
+packing, VMEM chunking, dense MXU group matrices and bf16x3 limb emulation
+have no counterpart: the CUDA kernels read the pipeline tensors as they
+are and compute in fp32 (the TPU's sampled kernel ran single-pass bf16;
+here it is fp32 like the rest, closer to the exact state).  The sampled
+kernels end in the hierarchical inverse CDF shared with the slot sampler
+(``csrc/sampler.cuh``); the grouped one runs the circuit once and then,
+per QWC measurement group, that group's rotation kron layer through the
+same passes into a second buffer, and the epilogue.
 
 Each wrapper takes its plain version (``*_plain``, beside it here) only
 because the tensors it was given lie on the CPU.  On CUDA tensors it

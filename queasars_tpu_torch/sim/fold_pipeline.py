@@ -19,9 +19,10 @@ A circuit of L layers becomes
     [x_q F_{L,q}] . D_L . [x_q F_{L-1,q}] . ... . D_1 . [x_q F_{0,q}]
 
 -- L+1 kron layers of per-qubit 2x2 factors and L diagonal-phase passes.
-The fold kernels (``sim/fold_kernels.py``) apply each kron layer as one
-complex group matrix per 7-qubit axis group (lane q<7, row 7<=q<14, top
-q>=14).  This module builds the pipeline tensors on the tensors' device in
+The fold kernels (``sim/fold_kernels.py``) apply each kron layer factor by
+factor over tiles of the state; the 7-qubit axis groups (lane q<7, row
+7<=q<14, top q>=14) mark which parts of a layer are active.  This module
+builds the pipeline tensors on the tensors' device in
 real float32 arithmetic and holds two plain appliers: a per-qubit one
 (float32, any size; the plain version behind the kernels) and a dense kron
 oracle (complex128, test sizes only).
@@ -55,10 +56,10 @@ class FoldPipeline(NamedTuple):
       fold differs from the identity (G = :func:`n_axis_groups`).
     - ``abs_ctrl`` / ``abs_tgt`` / ``abs_phase`` / ``abs_count``: the same
       layout, holding the controlled-diagonal phases absorbed into kron
-      layer ``l``'s group matrix (a CDiag whose control and target share
-      one axis group row-scales that group's matrix instead of running as
-      a full-state pass).  Empty unless ``build_fold_pipeline(...,
-      absorb_diag=True)``.
+      layer ``l`` (a CDiag whose control and target share one active axis
+      group; the reference row-scales that group's matrix with it, the
+      port's kernels apply it with the layer's last pass).  Empty unless
+      ``build_fold_pipeline(..., absorb_diag=True)``.
     """
 
     factors: torch.Tensor
@@ -181,9 +182,9 @@ def build_fold_pipeline(
     ``absorb_diag`` moves every controlled-diagonal phase whose control and
     target share one axis group -- and whose kron layer is already active in
     that group -- out of the full-state diagonal pass into the ``abs_*``
-    slots, where the kernels row-scale the group matrix instead.  The top
-    group absorbs only up to n=21 (as in the reference, whose n=22 kernels
-    split that group's matrix in two).
+    slots (the reference's kernels row-scale the group matrix with them).
+    The top group absorbs only up to n=21 (as in the reference, whose n=22
+    kernels split that group's matrix in two).
     """
     pop, n_layers, n = gate_types.shape
     if n != n_qubits:
@@ -352,8 +353,8 @@ def apply_fold_pipeline_plain(
 ) -> torch.Tensor:
     """Apply the pipeline in float32 (complex64), factor by factor:
     [P, 2, 2^n] planes from |0...0> or per-individual ``initial`` planes.
-    Absorbed phases apply right after their kron layer, as their row-scaled
-    group matrices do."""
+    Absorbed phases apply right after their kron layer, as the kernels
+    apply them."""
     factors = pipeline.factors
     pop, n_kron = factors.shape[0], factors.shape[1]
     dim = 1 << n_qubits

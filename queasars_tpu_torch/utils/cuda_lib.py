@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``: the slot, the
 fold and the compacted-gate kernels, with the shared headers ``csrc/*.cuh``).
 
-All sources are compiled by ONE ``nvcc`` call into a shared library with a
+Each source is compiled by its own ``nvcc`` process, all started together,
+and one more ``nvcc`` call links the objects into a shared library with a
 plain C interface, loaded with ``ctypes``.  No PyTorch header is included,
 so the build takes seconds; nothing is built when this module is imported,
 only at the first launch (or an explicit :func:`build`).
@@ -63,10 +64,11 @@ SIGNATURES = {
 
 @dataclass
 class BuildInfo:
-    """What one build did: the command, its wall seconds, and the
-    per-kernel register/spill lines ``-Xptxas -v`` printed."""
+    """What one build did: the commands (one compile per source, then the
+    link), its wall seconds, and the per-kernel register/spill lines
+    ``-Xptxas -v`` printed."""
 
-    command: list[str]
+    commands: list[list[str]]
     seconds: float
     ptxas: list[str]
 
@@ -99,25 +101,41 @@ def library_path() -> Path:
 
 
 def build() -> BuildInfo:
-    """Compile every ``csrc/*.cu`` with one nvcc call (always rebuilds)."""
+    """Compile every ``csrc/*.cu`` in parallel, one nvcc process per source,
+    and link them (always rebuilds)."""
     target = library_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    command = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = f"{target.name}.{os.getpid()}"
+    tmp = target.with_name(f"{tag}.tmp")
+    compile_flags = [flag for flag in NVCC_FLAGS if flag != "-shared"]
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
+    commands = [[nvcc_path(), *compile_flags, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources(), objects)]
+    link = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, objects)]
     start = time.perf_counter()
-    proc = subprocess.run(command, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in commands]
+    outputs = [proc.communicate() for proc in procs]
+    failed = [(proc.returncode, err) for proc, (_, err) in zip(procs, outputs) if proc.returncode]
+    if not failed:
+        linked = subprocess.run(link, capture_output=True, text=True)
+        if linked.returncode:
+            failed.append((linked.returncode, linked.stderr))
     seconds = time.perf_counter() - start
-    if proc.returncode != 0:
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        code, err = failed[0]
+        raise RuntimeError(f"nvcc failed ({code}):\n{err[-4000:]}")
     os.replace(tmp, target)
-    output = proc.stdout + proc.stderr
+    output = "".join(out + err for out, err in outputs)
     ptxas = [
         line.strip()
         for line in output.splitlines()
         if re.search(r"Compiling entry|Used \d+ registers|spill", line)
     ]
-    return BuildInfo(command=command, seconds=seconds, ptxas=ptxas)
+    return BuildInfo(commands=[*commands, link], seconds=seconds, ptxas=ptxas)
 
 
 def load() -> ctypes.CDLL:

@@ -170,10 +170,11 @@ def test_fold_kernels_match_plain_versions(cuda_device, n_qubits):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_qubits", [8, 9, 11, 12, 13, 15, 16, 19, 21, 22])
 def test_fold_circuit_kernels_at_every_group_width(cuda_device, n_qubits):
-    """Every group width the group kernel is built for: row groups of 1-6
-    bits (n=8..13), top groups of 1, 2, 5 and 7 bits (n=15, 16, 19, 21),
-    and the 8-bit top group of n=22, applied as two 4-bit sub-kron factors
-    (no phase is absorbed into it at that size)."""
+    """Every axis-group width: row groups of 1-6 bits (n=8..13, the whole
+    state in one tile), top groups of 1, 2, 5 and 7 bits (n=15, 16, 19,
+    21: one-round and two-round top passes), and the 8-bit top group of
+    n=22, applied natively by the top pass (no phase is absorbed into it at
+    that size)."""
     from queasars_tpu_torch.sim import fold_kernels as fk
     from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
 
@@ -194,6 +195,93 @@ def test_fold_circuit_kernels_at_every_group_width(cuda_device, n_qubits):
         fk.energies_exact_folded_plain(pipeline, table, n_qubits),
         atol=1e-5 * float(table.abs().max()), rtol=0,
     )
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits", [7, 13, 14, 15, 20, 21, 22])
+def test_fold_engine_tile_shapes(cuda_device, n_qubits):
+    """Every tile shape of the fold circuit engine: the whole state in one
+    tile (n <= 13), 1- and 2-bit tops (n=14, 15; one round), 7-, 8- and
+    9-bit tops (n=20, 21, 22; two rounds).  Whole, prefix and suffix circuits (inactive groups, passes with
+    nothing to do, one individual with no gate at all, which only the last
+    pass fills), from |0...0> and from per-individual start states, with
+    and without absorbed phases: states to 1e-5 against the plain version
+    and equal bits on a repeat.  At n <= 20 the folded sweep, whose REST
+    excludes the probed qubit, against its plain version (energies to
+    1e-5 * max|table|)."""
+    from queasars_tpu_torch.optim.prefix import prefix_mask
+    from queasars_tpu_torch.sim import fold_kernels as fk
+    from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
+
+    gt, ctrl, ang, mask = _genomes(n_qubits, 4, 3, n_qubits + 1, cuda_device)
+    mask = mask.clone()
+    mask[2] = False
+    last = mask.sum(dim=1).clamp(min=1) - 1
+    pmask = prefix_mask(mask, last)
+    initial = fk.population_states_folded_plain(
+        build_fold_pipeline(*_genomes(n_qubits, 1, 3, 2, cuda_device), n_qubits), n_qubits)
+    for m in (mask, pmask, mask & ~pmask):
+        for absorb in (True, False):
+            pipeline = build_fold_pipeline(gt, ctrl, ang, m, n_qubits, absorb_diag=absorb)
+            for start in (None, initial):
+                states = fk.population_states_folded(pipeline, n_qubits, start)
+                torch.testing.assert_close(
+                    states, fk.population_states_folded_plain(pipeline, n_qubits, start),
+                    atol=1e-5, rtol=0)
+                assert torch.equal(states, fk.population_states_folded(pipeline, n_qubits, start))
+    if n_qubits <= 20:
+        table = torch.linspace(-5.0, 7.0, 1 << n_qubits, device=cuda_device).flip(0).contiguous()
+        args = _fold_sweep_args(gt, ctrl, ang, mask, n_qubits, table, 9, 4)
+        _, z = fk.nft_layer_sweep_folded(*args)
+        _, z_plain = fk.nft_layer_sweep_folded_plain(*args)
+        torch.testing.assert_close(z, z_plain, atol=1e-5 * 7.0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits", [14, 15, 20, 21])
+def test_grouped_rotations_equal_the_folded_sampler(cuda_device, n_qubits):
+    """Row 11 against row 10 per group, bit for bit, for rotation layers on
+    every qubit (H), on the lane group only, on the row group only, on the
+    top group only (n > 14: the rotation's first pass with work is the top
+    one, reading the circuit's planes out of place) and on none, from
+    |0...0> and from per-individual start states."""
+    from queasars_tpu_torch.sim import fold_kernels as fk
+    from queasars_tpu_torch.sim.fold_pipeline import (
+        build_fold_pipeline,
+        extend_fold_pipeline_with_rotation,
+        rotation_layer_factors,
+    )
+    from queasars_tpu_torch.sim.statevector import GATE_ROT
+    from queasars_tpu_torch.utils import prng
+
+    genome = _genomes(n_qubits, 3, 3, n_qubits, cuda_device)
+    pipeline = build_fold_pipeline(*genome, n_qubits, absorb_diag=True)
+    initial = sk.population_states(*_genomes(n_qubits, 1, 3, 1, cuda_device), n_qubits)
+    tops = [range(14, n_qubits)] if n_qubits > 14 else []
+    spans = [range(n_qubits), range(7), range(7, 14), *tops, range(0)]
+    rng = np.random.default_rng(n_qubits)
+    rot_types = np.zeros((len(spans), n_qubits), np.int32)
+    rot_angles = np.zeros((len(spans), n_qubits, 3), np.float32)
+    rot_angles[0, :, 0], rot_angles[0, :, 2] = np.pi / 2, np.pi  # H on every qubit
+    for g, span in enumerate(spans):
+        rot_types[g, list(span)] = GATE_ROT
+        if g > 0:
+            rot_angles[g, list(span)] = rng.uniform(-np.pi, np.pi, (len(span), 3))
+    rot_types = torch.from_numpy(rot_types).to(cuda_device)
+    rot_angles = torch.from_numpy(rot_angles).to(cuda_device)
+    factors, activity = rotation_layer_factors(rot_types, rot_angles, n_qubits)
+    rotate = [len(span) > 0 for span in spans]
+    assert activity.bool().any(dim=1).tolist() == rotate
+    keys = prng.split(prng.PRNGKey(n_qubits + 1), 3)
+    fracs = [prng.uniform(prng.fold_in(keys, g), (300,)).to(cuda_device) for g in range(len(spans))]
+    for start in (None, initial):
+        got = fk.grouped_shot_indices_folded(pipeline, factors, activity, fracs, n_qubits, start,
+                                             rotate=rotate)
+        for g in range(len(spans)):
+            extended = extend_fold_pipeline_with_rotation(
+                pipeline, rot_types[g], rot_angles[g], n_qubits)
+            assert torch.equal(
+                got[g], fk.sampled_shot_indices_folded(extended, fracs[g], n_qubits, start)), g
 
 
 @pytest.mark.cuda

@@ -1,0 +1,195 @@
+#!/usr/bin/env python3
+"""Times the fold kernels (rows 6-11) of two checkouts of the port on one
+CUDA card, in turns, at ``chip_smoke.py``'s shapes.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 tools/fold_engine_ab.py --other DIR [--json PATH]
+
+``DIR`` holds another checkout of the repository (for example the parent
+commit, unpacked with ``git archive``).  Each turn is a fresh process that
+imports ``queasars_tpu_torch`` and ``chip_smoke`` from one checkout, builds
+that checkout's kernels and times, with CUDA events after a warm-up, at
+n=20, P=16, L=6 on config 4's 20-qubit JSSP table (``chip_smoke.Workload``):
+
+- row 6, energies from the prefix states, from |0...0> and at bench.py's
+  shape (P=32, 5 layers, 512-term table);
+- row 7, the prefix states; row 8, the folded sweep (maxiter 30);
+- row 9, the whole circuits' probabilities;
+- row 10, 512 sampled shots from |0...0> and from the prefix states;
+- row 11, the grouped sampler on TFIM-20 (512 shots per group) from
+  |0...0> and from the prefix states;
+- the fold states kernel on identity factors marked active with no phase:
+  in the engine every pass then only streams the planes.
+
+The turns run in the order A B B A (A is this checkout, B the other),
+ten timed calls per row and turn.  Where a checkout's ``chip_smoke.py``
+has ``engine_bytes`` the turn also reports each call's engine bytes (the
+circuit passes' plane traffic by the design's rule, without the
+epilogue's) and those bytes over the call's time.  Prints
+the card's name and power limit and one line per row with both
+checkouts' times (ms, mean over their turns, and each turn) and the
+ratio; ``--json`` writes the whole record to PATH.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ORDER = "ABBA"  # the turns: A is this checkout, B the other
+REPS = 10  # timed calls per row and turn (3 for the sweep)
+
+
+def worker(root: str) -> dict:
+    """Time rows 6-11 with the checkout at ``root``; returns ms per call
+    (and engine bytes per call where the checkout can count them)."""
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke as cs
+    from queasars_tpu_torch.sim import fold_kernels as fk
+    from queasars_tpu_torch.sim import slot_kernels as sk
+    from queasars_tpu_torch.sim.fold_pipeline import (
+        FoldPipeline,
+        build_fold_pipeline,
+        extend_fold_pipeline_with_rotation,
+    )
+    from queasars_tpu_torch.sim.grouped_sampling import grouped_operands
+    from queasars_tpu_torch.utils import cuda_lib, prng
+
+    assert os.path.dirname(os.path.abspath(fk.__file__)).startswith(os.path.abspath(root))
+    cuda_lib.load()
+    n = cs.N_QUBITS
+    _, _, hamiltonian = cs.jssp_with_qubits(3, 3, 6, n, {1: 0.5, 2: 0.5})
+    from queasars_tpu_torch.paulis import diagonal_energy_table
+
+    table = diagonal_energy_table(hamiltonian, dtype=torch.float32, device=cs.DEVICE)
+    w = cs.Workload(table)
+    gt, ctrl, ang = w.gt, w.ctrl, w.ang
+
+    def pipe(mask, genome=(gt, ctrl, ang)):
+        return build_fold_pipeline(*genome, mask, n, absorb_diag=True)
+
+    pre, suf, full = pipe(w.pmask), pipe(w.smask), pipe(w.mask)
+    bgt, bctrl, bang, bmask = w.bench
+    bench = pipe(bmask, (bgt, bctrl, bang))
+    prefix = sk.population_states(gt, ctrl, ang, w.pmask, n)
+    fold_prefix = fk.population_states_folded(pre, n)
+    keys = prng.split(prng.PRNGKey(cs.SAMPLED["seed"]), w.pop)
+    frac = prng.uniform(keys, (cs.SAMPLED["shots"],)).to(cs.DEVICE)
+    meta = [torch.as_tensor(m, device=cs.DEVICE) for m in fk.fold_sweep_metadata(
+        w.gt1.cpu().numpy(), w.ctrl1.cpu().numpy(), n)]
+    sweep = (w.gt1, w.ang1, w.coords, w.n_free, w.active, fold_prefix, table, *meta, n,
+             cs.SOLVE["maxiter"], 32)
+    ops = grouped_operands(cs.tfim20(), cs.DEVICE)
+    fracs = [prng.uniform(prng.fold_in(keys, g), (cs.SAMPLED["shots"],)).to(cs.DEVICE)
+             for g in range(ops.tables.shape[0])]
+
+    def grouped(start):
+        return fk.grouped_shot_indices_folded(full if start is None else suf, ops.rot_factors,
+                                              ops.rot_active, fracs, n, start, rotate=ops.rotate)
+
+    # identity factors in every group, marked active, and no phase: every
+    # pass runs and has nothing to apply, so it only streams the planes
+    eye = torch.zeros_like(pre.factors)
+    eye[:, :, :, 0, 0, 0] = eye[:, :, :, 0, 1, 1] = 1.0
+    none = torch.zeros_like(pre.diag_count)
+    copy = FoldPipeline(eye, *pre[1:4], none, torch.ones_like(pre.group_active), *pre[6:9], none)
+
+    rotations = {key: [extend_fold_pipeline_with_rotation(base, ops.rot_types[g],
+                                                          ops.rot_angles[g], n)
+                       for g, rotate in enumerate(ops.rotate) if rotate]
+                 for key, base in (("full", full), ("suf", suf))}
+    calls = {  # name: (call, its pipeline, the grouped sampler's rotated pipelines)
+        "copy passes (identity factors)": (lambda: fk.population_states_folded(copy, n), copy, ()),
+        "row 6 energies from prefix": (lambda: fk.energies_exact_folded(suf, table, n, prefix),
+                                       suf, ()),
+        "row 6 energies from |0>": (lambda: fk.energies_exact_folded(full, table, n), full, ()),
+        "row 6 energies bench shape": (
+            lambda: fk.energies_exact_folded(bench, w.bench_table, n), bench, ()),
+        "row 7 states (prefix circuits)": (lambda: fk.population_states_folded(pre, n), pre, ()),
+        "row 8 sweep": (lambda: fk.nft_layer_sweep_folded(*sweep), None, ()),
+        "row 9 probabilities": (lambda: fk.population_probs_folded(full, n), full, ()),
+        "row 10 sampled from |0>": (lambda: fk.sampled_shot_indices_folded(full, frac, n), full,
+                                    ()),
+        "row 10 sampled from prefix": (
+            lambda: fk.sampled_shot_indices_folded(suf, frac, n, prefix), suf, ()),
+        "row 11 grouped TFIM from |0>": (lambda: grouped(None), full, rotations["full"]),
+        "row 11 grouped TFIM from prefix": (lambda: grouped(prefix), suf, rotations["suf"]),
+    }
+
+    out = {}
+    for name, (fn, pipeline, rotated) in calls.items():
+        ms = cs.time_ms(fn, 3 if pipeline is None else REPS)
+        record = {"ms": ms}
+        if hasattr(cs, "engine_bytes") and pipeline is not None:
+            moved = cs.engine_bytes(pipeline, n, rotated)
+            record.update(engine_bytes=moved, engine_gb_per_s=moved / ms / 1e6)
+        out[name] = record
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--other", help="another checkout of the repository")
+    parser.add_argument("--json", help="write the record to this file")
+    parser.add_argument("--worker", help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    if args.worker:
+        print(json.dumps(worker(args.worker)), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("fold_engine_ab: no CUDA device is available", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print(card, flush=True)
+    if not args.other:
+        parser.error("--other is needed")
+    roots = {"A": HERE, "B": os.path.abspath(args.other)}
+    turns = []
+    for label in ORDER:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker", roots[label]],
+            capture_output=True, text=True, cwd=roots[label],
+        )
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        turns.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
+        print(f"turn {len(turns)} ({label}, {roots[label]}) done", flush=True)
+    summary = {}
+    for name in turns[0][1]:
+        row = {}
+        for label in "AB":
+            times = [t[name]["ms"] for lab, t in turns if lab == label]
+            row[label] = {"ms": sum(times) / len(times), "turns": times}
+            extra = next(t[name] for lab, t in turns if lab == label)
+            if "engine_bytes" in extra:
+                row[label]["engine_bytes"] = extra["engine_bytes"]
+                row[label]["engine_gb_per_s"] = extra["engine_bytes"] / row[label]["ms"] / 1e6
+        summary[name] = row
+        text = "; ".join(
+            f"{lab} {r['ms']:.3f} ms ({', '.join(f'{x:.3f}' for x in r['turns'])})"
+            + (f", {r['engine_bytes'] / 1e9:.3f} GB, {r['engine_gb_per_s']:.1f} GB/s"
+               if "engine_bytes" in r else "")
+            for lab, r in row.items())
+        print(f"{name}: {text}; B/A {row['B']['ms'] / row['A']['ms']:.3f}", flush=True)
+    if args.json:
+        with open(args.json, "w") as handle:
+            json.dump({"card": card, "roots": roots, "order": ORDER, "rows": summary},
+                      handle, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
