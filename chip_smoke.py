@@ -14,7 +14,8 @@ with elapsed seconds:
    together and one link, printing the commands, seconds and
    ``-Xptxas -v`` lines;
 3. slot kernels at full width (n=20): every slot kernel against its plain
-   PyTorch version on the same inputs on the card, timed with CUDA events;
+   PyTorch version on the same inputs on the card, timed with CUDA events,
+   with the slot engine's plane bytes per call and GB/s (rows 1, 2, 5);
 4. fold kernels at the same shapes: every fold kernel against its plain
    version, the fold energies against the slot energies (the two routes
    compute one function), equal bits from equal inputs, timings;
@@ -386,10 +387,19 @@ def engine_bytes(pipeline, n_qubits, rotated=()) -> int:
     return circuit + sum(engine_bytes(ext, n_qubits) - circuit for ext in rotated)
 
 
-def engine_rate(name, pipeline, n_qubits, ms, rotated=()) -> str:
-    """The fold engine's bytes for one call (``engine_bytes``) and those
-    bytes over the call's measured time."""
-    moved = engine_bytes(pipeline, n_qubits, rotated)
+def slot_engine_bytes(gate_types, layer_mask, n_qubits) -> int:
+    """Plane traffic of the slot engine's circuit by its design's rule
+    (14 <= n <= 22): two passes per layer and individual where the layer
+    has an active slot (a U3 or CU3 in a layer that is on), each reading
+    and writing the [2, 2^n] float32 planes.  A pass with no slot of its
+    own skips, so this may count more than moves."""
+    active = ((gate_types == 1) | (gate_types == 3)) & layer_mask[:, :, None]
+    return int(active.any(dim=2).sum()) * 2 * 2 * (8 << n_qubits)
+
+
+def engine_rate(name, moved, ms) -> str:
+    """An engine's bytes for one call (``engine_bytes`` or
+    ``slot_engine_bytes``) and those bytes over the call's measured time."""
     rate = moved / ms * 1e3
     return (f"{name}: engine {moved / 1e9:.4f} GB per call in {ms:.3f} ms, {rate / 1e9:.1f} GB/s "
             f"({rate / PEAK_BYTES_PER_S:.1%} of 3.35 TB/s)")
@@ -554,6 +564,9 @@ def phase_kernels(w):
     )
     say(f"  nft_layer_sweep: mean energy {float(e_k.mean()):.4f} from "
         f"{float(w.full_energies(w.ang1).mean()):.4f}")
+    for name, m in (("population_states", pmask), ("energies_exact", smask)):
+        say("  " + engine_rate(name, slot_engine_bytes(gt, m, n), records[name]["ms"]))
+    say("  " + engine_rate("energies_exact bench", slot_engine_bytes(bgt, bmask, n), bench_ms))
     return finish_records(records, bounds)
 
 
@@ -628,7 +641,7 @@ def phase_fold_kernels(w):
     bench_ms = time_ms(lambda: fk.energies_exact_folded(bench_pipe, btable, n), 5)
     say(f"  energies_exact_folded bench [{bgt.shape[0]}, L={bgt.shape[1]}]: {bench_ms:.3f} ms "
         f"(bound {bounds['bench'][0]:.3f} ms, {bounds['bench'][1]})")
-    say("  " + engine_rate("energies_exact_folded bench", bench_pipe, n, bench_ms))
+    say("  " + engine_rate("energies_exact_folded bench", engine_bytes(bench_pipe, n), bench_ms))
     records["energies_exact_folded"].update(
         ms=time_ms(lambda: fk.energies_exact_folded(suf_pipe, table, n, prefix), 5),
         plain_ms=time_ms(lambda: fk.energies_exact_folded_plain(suf_pipe, table, n, prefix), 2),
@@ -671,7 +684,7 @@ def phase_fold_kernels(w):
     for name, pipe in (("population_states_folded", pre_pipe),
                        ("energies_exact_folded", suf_pipe),
                        ("population_probs_folded", full_pipe)):
-        say("  " + engine_rate(name, pipe, n, records[name]["ms"]))
+        say("  " + engine_rate(name, engine_bytes(pipe, n), records[name]["ms"]))
     return finish_records(records, bounds)
 
 
@@ -778,14 +791,19 @@ def phase_sampled_kernels(w):
                 ms=time_ms(lambda: fk.sampled_shot_indices_folded(pipe, frac, n), 5),
                 plain_ms=time_ms(lambda: fk.sampled_shot_indices_folded_plain(pipe, frac, n), 2),
             )
-            say("  " + engine_rate("sampled_shot_indices_folded from |0>", pipe, n,
+            say("  " + engine_rate("sampled_shot_indices from |0>", slot_engine_bytes(gt, m, n),
+                                   records["sampled_shot_indices"]["ms"]))
+            say("  " + engine_rate("sampled_shot_indices_folded from |0>", engine_bytes(pipe, n),
                                    records["sampled_shot_indices_folded"]["ms"]))
         else:
             slot_ms = time_ms(lambda: sk.sampled_shot_indices(gt, ctrl, ang, m, frac, n, start), 5)
             fold_ms = time_ms(lambda: fk.sampled_shot_indices_folded(pipe, frac, n, start), 5)
             say(f"  sampled from prefix (the searches' shape): slot {slot_ms:.3f} ms, "
                 f"fold {fold_ms:.3f} ms")
-            say("  " + engine_rate("sampled_shot_indices_folded from prefix", pipe, n, fold_ms))
+            say("  " + engine_rate("sampled_shot_indices from prefix", slot_engine_bytes(gt, m, n),
+                                   slot_ms))
+            say("  " + engine_rate("sampled_shot_indices_folded from prefix", engine_bytes(pipe, n),
+                                   fold_ms))
 
     # the epilogue alone, beside the two-call flat sampler on the same
     # probabilities (torch.cumsum then torch.searchsorted)
@@ -964,8 +982,8 @@ def phase_grouped_kernels(w):
             say(f"  grouped {op_name} {label}: kernel {kernel_ms:.3f} ms, per-group folded "
                 f"route {per_group_ms:.3f} ms")
             rotated = [extended[g] for g in range(n_groups) if ops.rotate[g]]
-            say("  " + engine_rate(f"grouped {op_name} {label} (circuit and rotations)", base, n,
-                                   kernel_ms, rotated))
+            say("  " + engine_rate(f"grouped {op_name} {label} (circuit and rotations)",
+                                   engine_bytes(base, n, rotated), kernel_ms))
             if op_name == "TFIM" and start is None:
                 records[name].update(
                     ms=kernel_ms, per_group_ms=per_group_ms,

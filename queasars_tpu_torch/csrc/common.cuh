@@ -1,6 +1,6 @@
 // Pieces shared by the slot, fold and compacted-gate kernels: state
-// initialisation, the U3 pair update, the deterministic energy reduction and
-// the probability pass.
+// initialisation, the U3 entries and pair update, the deterministic energy
+// reduction and the probability pass.
 //
 // A state is two float32 planes [2, 2^n] (re, im); a population of P states
 // is [P, 2, 2^n].  The energy reduction sums (re^2 + im^2) * table in a fixed
@@ -35,26 +35,38 @@ __device__ __forceinline__ float sum4(float a0, float b0, float a1, float b1, fl
                    __fmul_rn(a3, b3));
 }
 
-// U3(theta, phi, lam) on the amplitude pair (i0, i1) of the planes re, im,
-// i1 = i0 | 2^q.  The U3 entries are those of _u3_entries
+// The U3(theta, phi, lam) entries (re, im) of _u3_entries
 // (queasars_tpu/sim/pallas_kernels.py:44-52), computed with sinf/cosf as the
-// plain version's torch.sin/torch.cos compute them on the card.  The slot
-// gate pass and the compacted-gate pass both apply their gates here, so they
-// round alike.
-__device__ __forceinline__ void u3_pair_update(float* re, float* im, long long i0, long long i1,
-                                               float theta, float phi, float lam) {
+// plain version's torch.sin/torch.cos compute them on the card.
+struct U3 {
+  float u00r, u00i, u01r, u01i, u10r, u10i, u11r, u11i;
+};
+
+__device__ __forceinline__ U3 u3_entries(float theta, float phi, float lam) {
   const float sin_t = sinf(theta * 0.5f), cos_t = cosf(theta * 0.5f);
   const float pl = __fadd_rn(phi, lam);
-  const float u00r = cos_t, u00i = 0.0f;
-  const float u01r = -cosf(lam) * sin_t, u01i = -sinf(lam) * sin_t;
-  const float u10r = cosf(phi) * sin_t, u10i = sinf(phi) * sin_t;
-  const float u11r = cosf(pl) * cos_t, u11i = sinf(pl) * cos_t;
+  return U3{cos_t,           0.0f,           -cosf(lam) * sin_t, -sinf(lam) * sin_t,
+            cosf(phi) * sin_t, sinf(phi) * sin_t, cosf(pl) * cos_t,   sinf(pl) * cos_t};
+}
 
-  const float r0 = re[i0], m0 = im[i0], r1 = re[i1], m1 = im[i1];
-  re[i0] = sum4(u00r, r0, -u00i, m0, u01r, r1, -u01i, m1);
-  im[i0] = sum4(u00r, m0, u00i, r0, u01r, m1, u01i, r1);
-  re[i1] = sum4(u11r, r1, -u11i, m1, u10r, r0, -u10i, m0);
-  im[i1] = sum4(u11r, m1, u11i, r1, u10r, m0, u10i, r0);
+// U3 u on one amplitude pair (r0 + i m0, r1 + i m1), whose second index has
+// the target bit set.  The slot engine, the compacted-gate pass and the plain
+// version (sim/statevector.py::apply_u3_pairs) all round alike.
+__device__ __forceinline__ void u3_apply(const U3& u, float& r0, float& m0, float& r1, float& m1) {
+  const float a = r0, b = m0, c = r1, d = m1;
+  r0 = sum4(u.u00r, a, -u.u00i, b, u.u01r, c, -u.u01i, d);
+  m0 = sum4(u.u00r, b, u.u00i, a, u.u01r, d, u.u01i, c);
+  r1 = sum4(u.u11r, c, -u.u11i, d, u.u10r, a, -u.u10i, b);
+  m1 = sum4(u.u11r, d, u.u11i, c, u.u10r, b, u.u10i, a);
+}
+
+// U3(theta, phi, lam) on the amplitude pair (i0, i1) of the planes re, im,
+// i1 = i0 | 2^q (the compacted-gate pass).
+__device__ __forceinline__ void u3_pair_update(float* re, float* im, long long i0, long long i1,
+                                               float theta, float phi, float lam) {
+  float r0 = re[i0], m0 = im[i0], r1 = re[i1], m1 = im[i1];
+  u3_apply(u3_entries(theta, phi, lam), r0, m0, r1, m1);
+  re[i0] = r0, im[i0] = m0, re[i1] = r1, im[i1] = m1;
 }
 
 __device__ float block_sum(float value, float* shared) {

@@ -39,11 +39,14 @@
 //   * rounds: thread t holds 32 amplitudes in registers, the 2^5 values of
 //     five consecutive tile bits, and applies those bits' 2x2 factors there
 //     (8 FMAs per amplitude and factor); threads exchange through shared
-//     memory between rounds (3 rounds for 13 bits, 1-2 for a top).  The tile
-//     is XOR-swizzled by 32-float groups (i ^ ((i >> 5) & 31)), so no
-//     round's shared-memory access has a bank conflict.  A launch's first
-//     round loads from device memory and its last stores there directly; a
-//     one-round pass (a top of at most 5 bits) uses no shared memory at all.
+//     memory between rounds (3 rounds for 13 bits, 1-2 for a top).  The
+//     rounds' indexing, the XOR swizzle and the loads and stores are
+//     tile.cuh's, shared with the slot engine; the tile geometry is this
+//     engine's own (its top window always reaches bit n-1, and the slot
+//     engine's general map measured 1.3-2.7% slower here, PERF.md).  A
+//     launch's first round loads from device memory and its last stores
+//     there directly; a one-round pass (a top of at most 5 bits) uses no
+//     shared memory at all.
 //   * skips: a pass whose axis groups are inactive in that kron layer and
 //     that has no phase to apply returns at once, as does a round whose
 //     factors are all the identity.  The first pass with work reads the
@@ -86,18 +89,13 @@
 
 #include "common.cuh"
 #include "sampler.cuh"
+#include "tile.cuh"
 
 namespace {
 
 constexpr int kGateRot = 1;
 constexpr int kGateCrot = 3;
 constexpr int kLaneBits = 7;
-constexpr int kTileBits = 13;                                  // a tile: 2^13 amplitudes
-constexpr int kTileBlocks = 2;                                 // resident tiles per SM
-constexpr int kRegBits = 5;                                    // a round: 2^5 per thread
-constexpr int kRegs = 1 << kRegBits;
-constexpr int kTileThreads = 1 << (kTileBits - kRegBits);      // 256
-constexpr int kTileSmem = (int)(2 * sizeof(float)) << kTileBits;  // 64 KB
 constexpr int kMaxSlots = 11;  // CDiag slots of one layer (absorbed and not): at most n / 2
 constexpr int kPairSums = 9;
 constexpr float kHalfPi = 1.57079632679489662f;
@@ -178,27 +176,13 @@ struct Slot {
   float ph[4];
 };
 
-// Thread t's amplitude j in a round over the tile bits [s, s + 5): t fills
-// the other bits from the lowest up, so lanes of a warp run along bits 0-4
-// (or 5-9 when s = 0).
-__device__ __forceinline__ int round_index(int t, int s, int j) {
-  return (t & ((1 << s) - 1)) | ((t >> s) << (s + kRegBits)) | (j << s);
-}
-
-__device__ __forceinline__ int swizzle(int i) { return i ^ ((i >> kRegBits) & (kRegs - 1)); }
-
 __device__ __forceinline__ int global_index(const Pass& ps, int tile, int li) {
   return (li & ((1 << ps.low_bits) - 1)) | (tile << ps.low_bits) |
          ((li >> ps.low_bits) << (ps.low_bits + ps.mid_bits));
 }
 
 // Bit q (a global qubit) of amplitude j of a round over [s, s + 5) whose
-// amplitude 0 is local index base: (j >> shift) & 1 when shift >= 0, else
-// value for every j.
-struct BitOf {
-  int shift, value;
-};
-
+// amplitude 0 is local index base.
 __device__ __forceinline__ BitOf bit_of(const Pass& ps, int tile, int base, int s, int q) {
   int l = q;
   if (q >= ps.low_bits) {
@@ -255,59 +239,6 @@ __device__ __forceinline__ void apply_phases(float (&xr)[kRegs], float (&xi)[kRe
   }
 }
 
-// A round's amplitudes from device memory (re == null: |0...0>).  At s = 0
-// they are 32 consecutive floats of each plane.
-__device__ __forceinline__ void load_global(float (&xr)[kRegs], float (&xi)[kRegs],
-                                            const float* re, const float* im, const Pass& ps,
-                                            int tile, int base, int s) {
-  if (re == nullptr) {
-#pragma unroll
-    for (int j = 0; j < kRegs; ++j) {
-      xr[j] = global_index(ps, tile, base | (j << s)) == 0 ? 1.0f : 0.0f;
-      xi[j] = 0.0f;
-    }
-  } else if (s == 0) {
-    const int g = global_index(ps, tile, base);
-    const float4* r4 = reinterpret_cast<const float4*>(re + g);
-    const float4* i4 = reinterpret_cast<const float4*>(im + g);
-#pragma unroll
-    for (int c = 0; c < kRegs / 4; ++c) {
-      const float4 a = r4[c], b = i4[c];
-      xr[4 * c] = a.x, xr[4 * c + 1] = a.y, xr[4 * c + 2] = a.z, xr[4 * c + 3] = a.w;
-      xi[4 * c] = b.x, xi[4 * c + 1] = b.y, xi[4 * c + 2] = b.z, xi[4 * c + 3] = b.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kRegs; ++j) {
-      const int g = global_index(ps, tile, base | (j << s));
-      xr[j] = re[g];
-      xi[j] = im[g];
-    }
-  }
-}
-
-__device__ __forceinline__ void store_global(const float (&xr)[kRegs], const float (&xi)[kRegs],
-                                             float* re, float* im, const Pass& ps, int tile,
-                                             int base, int s) {
-  if (s == 0) {
-    const int g = global_index(ps, tile, base);
-    float4* r4 = reinterpret_cast<float4*>(re + g);
-    float4* i4 = reinterpret_cast<float4*>(im + g);
-#pragma unroll
-    for (int c = 0; c < kRegs / 4; ++c) {
-      r4[c] = make_float4(xr[4 * c], xr[4 * c + 1], xr[4 * c + 2], xr[4 * c + 3]);
-      i4[c] = make_float4(xi[4 * c], xi[4 * c + 1], xi[4 * c + 2], xi[4 * c + 3]);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kRegs; ++j) {
-      const int g = global_index(ps, tile, base | (j << s));
-      re[g] = xr[j];
-      im[g] = xi[j];
-    }
-  }
-}
-
 // Kron layers [k_begin, k_end) of pass ps on tile blockIdx.x of individual
 // blockIdx.y: each layer's factors round by round, then the phases the pass
 // carries (semantics of _apply_kron_layer and _apply_diag_pass,
@@ -349,6 +280,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
   float* out_im = out_re + dim;
   float* s_re = tile_s;
   float* s_im = tile_s + (1 << ps.tile_bits);
+  const auto index = [&](int li) { return global_index(ps, tile, li); };
 
   const int n_chunks = (ps.lb_last - ps.lb_first + kRegBits - 1) / kRegBits;
   float xr[kRegs], xi[kRegs];
@@ -398,14 +330,9 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
       if (!has && !first && !final_round) continue;
       const int base = round_index(t, s, 0);
       if (first) {
-        load_global(xr, xi, in_re, in_im, ps, tile, base, s);
+        load_global(xr, xi, in_re, in_im, index, base, s);
       } else {
-#pragma unroll
-        for (int j = 0; j < kRegs; ++j) {
-          const int i = swizzle(base | (j << s));
-          xr[j] = s_re[i];
-          xi[j] = s_im[i];
-        }
+        load_shared(xr, xi, s_re, s_im, base, s);
       }
       round_factor<0>(xr, xi, s, lo, hi, qact_s, &fac_s[0][0]);
       round_factor<1>(xr, xi, s, lo, hi, qact_s, &fac_s[0][0]);
@@ -414,14 +341,9 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
       round_factor<4>(xr, xi, s, lo, hi, qact_s, &fac_s[0][0]);
       if (carrier) apply_phases(xr, xi, slot_s, n_slots, ps, tile, base, s);
       if (final_round) {
-        store_global(xr, xi, out_re, out_im, ps, tile, base, s);
+        store_global(xr, xi, out_re, out_im, index, base, s);
       } else {
-#pragma unroll
-        for (int j = 0; j < kRegs; ++j) {
-          const int i = swizzle(base | (j << s));
-          s_re[i] = xr[j];
-          s_im[i] = xi[j];
-        }
+        store_shared(xr, xi, s_re, s_im, base, s);
         __syncthreads();
       }
       first = false;

@@ -18,16 +18,16 @@ wrapper                        replaces (queasars_tpu/sim/pallas_kernels.py)
 (``csrc/sampler.cuh``), on given state planes.
 
 The kernels live in ``queasars_tpu_torch/csrc/slot_kernels.cu``; its header
-says how each one is laid out on the H100.  What bounds them: every active
-gate slot streams the population's state planes through device memory once
-(32 bytes per amplitude pair: 16 read, 16 written), so the gate passes are
-bound by bytes at 3.35 TB/s, not by the few FLOPs per pair; the energy and
-probability passes read (and write) each plane once more.  The TPU kernels
-avoid that traffic by keeping a state in VMEM; an SM's 227 KB cannot hold
-an 8 MB state, so the first design here streams each slot through L2/HBM
-and leaves tiling of low-qubit slot runs in shared memory for later work.
-The sampled kernel runs the same circuit, then a hierarchical inverse CDF
-that reads the planes once more (bytes-bound as well).
+says how each one is laid out on the H100.  One circuit engine runs under
+all five: each layer's slots are applied in two passes over 2^13-amplitude
+shared-memory tiles (the slots on qubits 0-12, then those on 13..n-1; one
+launch for the whole circuit at n <= 13), so a layer streams the planes
+through device memory twice however many of its slots are active.  That
+traffic (16 MB per pass and individual at n=20) and the 28 separately
+rounded operations per amplitude pair and active slot bound it about
+equally.  The energy and probability passes read (and write) each plane
+once more; the sampled kernel runs the same circuit, then a hierarchical
+inverse CDF that reads the planes once more (bytes-bound as well).
 
 Each wrapper takes its plain version (``*_plain``, beside it here) only
 because the tensors it was given lie on the CPU.  On CUDA tensors it
@@ -52,6 +52,8 @@ launch_counts: dict[str, int] = {
     "sample_planes": 0,
 }
 
+#: the engine's largest size (in-state indices are 32-bit)
+ENGINE_MAX_QUBITS = 31
 #: the in-kernel samplers' smallest size (the block hierarchy needs 128 rows
 #: of 128 lanes) and the slot sampler's largest (the reference's cap; the
 #: fold sampler reaches 21, ``fold_kernels._CAPS["sampler"]``)
@@ -89,7 +91,13 @@ def _expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> Non
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_width(n_qubits: int) -> None:
+    if not 1 <= n_qubits <= ENGINE_MAX_QUBITS:
+        raise ValueError(f"the slot kernels need 1 <= n_qubits <= {ENGINE_MAX_QUBITS}")
+
+
 def _check_genome(gate_types, controls, angles, layer_mask, n_qubits):
+    _check_width(n_qubits)
     pop, n_layers = gate_types.shape[0], gate_types.shape[1]
     _expect(gate_types, "gate_types", torch.int32, (pop, n_layers, n_qubits))
     _expect(controls, "controls", torch.int32, (pop, n_layers, n_qubits))
@@ -267,6 +275,7 @@ def nft_layer_sweep(
             gate_types, controls, angles, coords, n_free, active, prefix, table,
             n_qubits, maxiter, reset_interval,
         )
+    _check_width(n_qubits)
     pop, dim = gate_types.shape[0], 1 << n_qubits
     k_max = coords.shape[1]
     _expect(gate_types, "gate_types", torch.int32, (pop, n_qubits))

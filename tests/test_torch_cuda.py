@@ -56,6 +56,99 @@ def _genomes(n_qubits, layers, pop, seed, device):
     return packed_tensors(packed, device=device)
 
 
+def slot_engine_windows(n_qubits):
+    """The slot engine's passes per layer (``csrc/slot_kernels.cu``) as
+    (first target, end target, low bits): qubits below 13 in the low tile,
+    the top qubits in windows of at most 9 bits whose tiles keep 13 - width
+    low bits together."""
+    tile = min(max(n_qubits, 5), 13)
+    windows = [(0, min(n_qubits, 13), tile)]
+    top = n_qubits - 13
+    count = -(-top // 9) if top > 0 else 0
+    start = 13
+    for k in range(count):
+        width = top // count + (k < top % count)
+        windows.append((start, start + width, 13 - width))
+        start += width
+    return windows
+
+
+def control_region(n_qubits, target, control):
+    """Where the slot engine finds a CU3's control bit: (window, the round's
+    first local bit, "register" / "tile" / "outside", "above" / "below")."""
+    for w, (q_lo, q_hi, low) in enumerate(slot_engine_windows(n_qubits)):
+        if q_lo <= target < q_hi:
+            break
+    tile_bits = low if w == 0 else 13
+    first = 0 if w == 0 else low
+
+    def local(q):
+        if q < low:
+            return q
+        return low + q - q_lo if w > 0 and q_lo <= q < q_hi else None
+
+    lo = first + (local(target) - first) // 5 * 5
+    s = min(lo, tile_bits - 5)
+    lc = local(control)
+    region = "outside" if lc is None else "register" if s <= lc < s + 5 else "tile"
+    return w, lo, region, "above" if control > target else "below"
+
+
+def slot_engine_genome(n_qubits, seed, min_layers=3):
+    """A numpy genome (gate_types, controls, angles, layer_mask) that puts a
+    CU3 in every (window, round, control region, control above or below)
+    class of ``control_region`` that n_qubits allows, in individuals 0-2,
+    with U3s on a random half of the free slots.  Individual 3 has no gate;
+    individual 4 has U3s on the low tile's qubits only in layer 0, on the
+    top qubits only in layer 1 (n > 13) and a masked layer 2; individual 5
+    is random.  Returns the genome and the classes it covers."""
+    rng = np.random.default_rng(seed)
+    n = n_qubits
+    classes = {}
+    for target in range(n):
+        for control in range(n):
+            if control != target:
+                classes.setdefault(control_region(n, target, control), []).append(
+                    (target, control))
+    pairs = [pairs[rng.integers(len(pairs))] for _, pairs in sorted(classes.items())]
+    used = [[] for _ in range(3)]  # per individual: the qubits of each layer
+    placed = [[] for _ in range(3)]
+    for i, (target, control) in enumerate(pairs):
+        layers = used[i % 3]
+        k = next((k for k, q in enumerate(layers) if target not in q and control not in q), None)
+        if k is None:
+            layers.append(set())
+            k = len(layers) - 1
+        layers[k] |= {target, control}
+        placed[i % 3].append((k, target, control))
+    n_layers = max(min_layers, *(len(u) for u in used))
+    pop = 6
+    gate_types = np.zeros((pop, n_layers, n), np.int32)
+    controls = np.full((pop, n_layers, n), -1, np.int32)
+    angles = rng.uniform(-np.pi, np.pi, (pop, n_layers, n, 3)).astype(np.float32)
+    layer_mask = np.ones((pop, n_layers), bool)
+    for p in range(3):
+        for k, target, control in placed[p]:
+            gate_types[p, k, target], controls[p, k, target] = 3, control
+            gate_types[p, k, control] = 2
+        free = gate_types[p] == 0
+        gate_types[p][free & (rng.random(free.shape) < 0.5)] = 1
+    low = np.arange(n) < 13
+    gate_types[4, 0, low] = 1
+    gate_types[4, 1, ~low] = 1
+    gate_types[4, 2] = 1
+    layer_mask[4, 2] = False
+    for k in range(n_layers):
+        order = rng.permutation(n)
+        for a, b in zip(order[0::2], order[1::2]):
+            kind = rng.integers(3)
+            if kind == 2:
+                gate_types[5, k, a], controls[5, k, a], gate_types[5, k, b] = 3, b, 2
+            else:
+                gate_types[5, k, [a, b]] = kind
+    return (gate_types, controls, angles, layer_mask), set(classes)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_qubits", [7, 12])
 def test_circuit_kernels_match_plain_versions(cuda_device, n_qubits):
@@ -80,6 +173,96 @@ def test_circuit_kernels_match_plain_versions(cuda_device, n_qubits):
     torch.cuda.synchronize()
     assert sk.launch_counts["population_probs"] == 1
     assert sk.launch_counts["energies_exact"] == 2
+
+
+def _first_layer_sweep(gt, ctrl, ang, n):
+    """The slot sweep's arguments for each individual's first layer from
+    |0...0> (prefix: no layer): layer slices and free coordinates."""
+    pop = gt.shape[0]
+    layer = [t[:, 0].contiguous() for t in (gt, ctrl, ang)]
+    coords = torch.zeros((pop, 3 * n, 2), dtype=torch.int32)
+    n_free = torch.zeros(pop, dtype=torch.int32)
+    for p, types in enumerate(layer[0].cpu().tolist()):
+        flat = [(q, a) for q, t in enumerate(types) if t in (1, 3) for a in range(3)]
+        if flat:
+            coords[p, : len(flat)] = torch.tensor(flat, dtype=torch.int32)
+        n_free[p] = len(flat)
+    n_free = n_free.to(gt.device)
+    return (*layer, coords.to(gt.device), n_free, n_free > 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits", [3, 7, 12, 13, 14, 15, 18, 20, 21, 22])
+def test_slot_engine_tile_shapes(cuda_device, n_qubits):
+    """Every tile shape of the slot circuit engine (a state smaller than one
+    round at n=3, the whole state in one tile at n <= 13; 1-, 2-, 5-, 7-, 8-
+    and 9-bit top windows) on a genome
+    with a CU3 in every control class (``slot_engine_genome``: control in
+    the same round, elsewhere in the tile or outside it, above or below the
+    target), a masked layer, an individual with no gate and layers whose
+    gates are all low or all high.  Whole, prefix and suffix circuits and
+    none at all, from |0...0> and from per-individual start states: states
+    equal to the plain version bit for bit; energies and probabilities
+    equal on a repeat; at n <= 20 the sweep (2P probe circuits from P
+    prefix states) against its plain version to 1e-5 * max|table|; at
+    n = 14 and 20 the sampler's draws all equal to its plain version's."""
+    from queasars_tpu_torch.interop import genome_tensors_from_numpy
+    from queasars_tpu_torch.optim.prefix import prefix_mask
+    from queasars_tpu_torch.utils import prng
+
+    n = n_qubits
+    genome, _ = slot_engine_genome(n, seed=n)
+    gt, ctrl, ang, mask = genome_tensors_from_numpy(*genome, device=cuda_device)
+    pop = gt.shape[0]
+    rng = np.random.default_rng(n)
+    initial = rng.normal(size=(pop, 2, 1 << n)).astype(np.float32)
+    initial /= np.sqrt((initial**2).sum(axis=(1, 2), keepdims=True))
+    initial = torch.from_numpy(initial).to(cuda_device)
+    table = torch.from_numpy((rng.normal(size=1 << n) * 30).astype(np.float32)).to(cuda_device)
+    pmask = prefix_mask(mask, mask.sum(dim=1).clamp(min=1) - 1)
+    for m in (mask, pmask, mask & ~pmask, torch.zeros_like(mask)):
+        for start in (None, initial):
+            states = sk.population_states(gt, ctrl, ang, m, n, start)
+            assert torch.equal(states, sk.population_states_plain(gt, ctrl, ang, m, n, start))
+    probs = sk.population_probs(gt, ctrl, ang, mask, n, initial)
+    assert torch.equal(probs, sk.population_probs(gt, ctrl, ang, mask, n, initial))
+    energies = sk.energies_exact(gt, ctrl, ang, mask, table, n, initial)
+    assert torch.equal(energies, sk.energies_exact(gt, ctrl, ang, mask, table, n, initial))
+    if n <= 20:
+        prefix = sk.population_states(gt, ctrl, ang, torch.zeros_like(mask), n, initial)
+        args = (*_first_layer_sweep(gt, ctrl, ang, n), prefix, table, n, 9, 4)
+        _, z = sk.nft_layer_sweep(*args)
+        _, z_plain = sk.nft_layer_sweep_plain(*args)
+        torch.testing.assert_close(z, z_plain, atol=1e-5 * float(table.abs().max()), rtol=0)
+    if n in (14, 20):
+        frac = prng.uniform(prng.split(prng.PRNGKey(n), pop), (512,)).to(cuda_device)
+        for start in (None, initial):
+            assert torch.equal(sk.sampled_shot_indices(gt, ctrl, ang, mask, frac, n, start),
+                               sk.sampled_shot_indices_plain(gt, ctrl, ang, mask, frac, n, start))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits,passes_per_layer", [(9, 0), (13, 0), (14, 2), (22, 2), (23, 3)])
+def test_slot_engine_launches_per_layer(cuda_device, n_qubits, passes_per_layer):
+    """The slot engine's launches per circuit, read from the profiler: one
+    for the whole circuit at n <= 13 (0 per layer here), one per window and
+    layer above: two at 14 <= n <= 22, three at n = 23 (two top windows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from queasars_tpu_torch.interop import genome_tensors_from_numpy
+
+    genome, _ = slot_engine_genome(n_qubits, seed=1)
+    gt, ctrl, ang, mask = genome_tensors_from_numpy(*genome, device=cuda_device)
+    states = sk.population_states(gt, ctrl, ang, mask, n_qubits)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = sk.population_states(gt, ctrl, ang, mask, n_qubits)
+        torch.cuda.synchronize()
+    launches = sum(e.count for e in prof.key_averages() if "slot_pass" in e.key)
+    assert launches == (passes_per_layer * gt.shape[1] or 1)
+    assert torch.equal(states, again)
+    if n_qubits == 23:  # beyond the other tests' widths: against the plain version too
+        assert torch.equal(states, sk.population_states_plain(gt, ctrl, ang, mask, n_qubits))
 
 
 @pytest.mark.cuda

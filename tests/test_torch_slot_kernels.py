@@ -24,6 +24,7 @@ from queasars_tpu.sim.pallas_kernels import (
 )
 from queasars_tpu_torch.interop import energy_table_from_numpy, genome_tensors_from_numpy
 from queasars_tpu_torch.sim import slot_kernels as sk
+from tests.test_torch_cuda import control_region, slot_engine_genome
 
 
 def _genomes(n_qubits, layers, pop, seed, min_layers=None):
@@ -45,6 +46,27 @@ def _random_states(pop, n_qubits, seed):
 def test_population_states_plain_matches_pallas():
     n = 8
     genome = _genomes(n, 3, 4, seed=2)
+    want = np.asarray(pallas_population_states(*genome, n, interpret=True))
+    got = sk.population_states(*genome_tensors_from_numpy(*genome), n)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+def test_plain_slot_circuit_matches_pallas_at_the_engine_tile_boundary():
+    """n=14, where the slot engine on the card splits each layer into its
+    low-tile and top passes: the plain slot circuit (the card tests'
+    yardstick) against the Pallas kernel on a genome with a CU3 in every
+    control class the engine tells apart (control in the same round,
+    elsewhere in the tile or outside it, above or below the target), a
+    masked layer, an individual with no gate and all-low / all-high layers."""
+    n = 14
+    (gate_types, controls, angles, layer_mask), classes = slot_engine_genome(n, seed=3)
+    present = {
+        control_region(n, q, int(controls[p, k, q]))
+        for p, k, q in zip(*np.nonzero(gate_types == 3))
+    }
+    assert present == classes and {c[2] for c in classes} == {"register", "tile", "outside"}
+    assert {c[0] for c in classes} == {0, 1}  # targets in both passes
+    genome = (gate_types, controls, angles, layer_mask)
     want = np.asarray(pallas_population_states(*genome, n, interpret=True))
     got = sk.population_states(*genome_tensors_from_numpy(*genome), n)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Times the fold kernels (rows 6-11) of two checkouts of the port on one
-CUDA card, in turns, at ``chip_smoke.py``'s shapes.
+"""Times the slot and fold kernels (rows 1-11) of two checkouts of the port
+on one CUDA card, in turns, at ``chip_smoke.py``'s shapes.
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 tools/fold_engine_ab.py --other DIR [--json PATH]
+    python3 tools/engine_ab.py --other DIR [--json PATH]
 
 ``DIR`` holds another checkout of the repository (for example the parent
 commit, unpacked with ``git archive``).  Each turn is a fresh process that
@@ -12,8 +12,13 @@ imports ``queasars_tpu_torch`` and ``chip_smoke`` from one checkout, builds
 that checkout's kernels and times, with CUDA events after a warm-up, at
 n=20, P=16, L=6 on config 4's 20-qubit JSSP table (``chip_smoke.Workload``):
 
-- row 6, energies from the prefix states, from |0...0> and at bench.py's
-  shape (P=32, 5 layers, 512-term table);
+- row 1, the slot energies from the prefix states, from |0...0> and at
+  bench.py's shape (P=32, 5 layers, 512-term table); row 2, the slot
+  prefix states; row 3, the slot sweep (maxiter 30); row 4, the whole
+  circuits' probabilities; row 5, 512 sampled shots from |0...0> and from
+  the prefix states;
+- row 6, the fold energies from the prefix states, from |0...0> and at
+  bench.py's shape;
 - row 7, the prefix states; row 8, the folded sweep (maxiter 30);
 - row 9, the whole circuits' probabilities;
 - row 10, 512 sampled shots from |0...0> and from the prefix states;
@@ -23,13 +28,14 @@ n=20, P=16, L=6 on config 4's 20-qubit JSSP table (``chip_smoke.Workload``):
   in the engine every pass then only streams the planes.
 
 The turns run in the order A B B A (A is this checkout, B the other),
-ten timed calls per row and turn.  Where a checkout's ``chip_smoke.py``
-has ``engine_bytes`` the turn also reports each call's engine bytes (the
-circuit passes' plane traffic by the design's rule, without the
-epilogue's) and those bytes over the call's time.  Prints
-the card's name and power limit and one line per row with both
-checkouts' times (ms, mean over their turns, and each turn) and the
-ratio; ``--json`` writes the whole record to PATH.
+ten timed calls per row and turn (three for a sweep).  Where a checkout's
+``chip_smoke.py`` can count them (``engine_bytes`` for the fold engine,
+``slot_engine_bytes`` for the slot engine) the turn also reports each
+call's engine bytes (the circuit passes' plane traffic by the design's
+rule, without the epilogue's) and those bytes over the call's time.
+Prints the card's name and power limit and one line per row with both
+checkouts' times (ms, mean over their turns, and each turn) and the ratio;
+``--json`` writes the whole record to PATH.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ REPS = 10  # timed calls per row and turn (3 for the sweep)
 
 
 def worker(root: str) -> dict:
-    """Time rows 6-11 with the checkout at ``root``; returns ms per call
+    """Time rows 1-11 with the checkout at ``root``; returns ms per call
     (and engine bytes per call where the checkout can count them)."""
     sys.path.insert(0, root)
     import torch
@@ -105,30 +111,68 @@ def worker(root: str) -> dict:
                                                           ops.rot_angles[g], n)
                        for g, rotate in enumerate(ops.rotate) if rotate]
                  for key, base in (("full", full), ("suf", suf))}
-    calls = {  # name: (call, its pipeline, the grouped sampler's rotated pipelines)
-        "copy passes (identity factors)": (lambda: fk.population_states_folded(copy, n), copy, ()),
+    bench_table = w.bench_table
+    slot_sweep = (w.gt1, w.ctrl1, w.ang1, w.coords, w.n_free, w.active, prefix, table, n,
+                  cs.SOLVE["maxiter"], 32)
+
+    def fold(pipeline, rotated=()):
+        if hasattr(cs, "engine_bytes"):
+            return lambda: cs.engine_bytes(pipeline, n, rotated)
+        return None
+
+    def slot(gate_types, mask):
+        if hasattr(cs, "slot_engine_bytes"):
+            return lambda: cs.slot_engine_bytes(gate_types, mask, n)
+        return None
+
+    calls = {  # name: (call, its engine bytes or None, timed calls)
+        "row 1 energies from prefix": (
+            lambda: sk.energies_exact(gt, ctrl, ang, w.smask, table, n, prefix),
+            slot(gt, w.smask), REPS),
+        "row 1 energies from |0>": (lambda: sk.energies_exact(gt, ctrl, ang, w.mask, table, n),
+                                    slot(gt, w.mask), REPS),
+        "row 1 energies bench shape": (
+            lambda: sk.energies_exact(bgt, bctrl, bang, bmask, bench_table, n),
+            slot(bgt, bmask), REPS),
+        "row 2 states (prefix circuits)": (
+            lambda: sk.population_states(gt, ctrl, ang, w.pmask, n), slot(gt, w.pmask), REPS),
+        "row 3 sweep": (lambda: sk.nft_layer_sweep(*slot_sweep), None, 3),
+        "row 4 probabilities": (lambda: sk.population_probs(gt, ctrl, ang, w.mask, n),
+                                slot(gt, w.mask), REPS),
+        "row 5 sampled from |0>": (
+            lambda: sk.sampled_shot_indices(gt, ctrl, ang, w.mask, frac, n),
+            slot(gt, w.mask), REPS),
+        "row 5 sampled from prefix": (
+            lambda: sk.sampled_shot_indices(gt, ctrl, ang, w.smask, frac, n, prefix),
+            slot(gt, w.smask), REPS),
+        "copy passes (identity factors)": (lambda: fk.population_states_folded(copy, n),
+                                           fold(copy), REPS),
         "row 6 energies from prefix": (lambda: fk.energies_exact_folded(suf, table, n, prefix),
-                                       suf, ()),
-        "row 6 energies from |0>": (lambda: fk.energies_exact_folded(full, table, n), full, ()),
+                                       fold(suf), REPS),
+        "row 6 energies from |0>": (lambda: fk.energies_exact_folded(full, table, n), fold(full),
+                                    REPS),
         "row 6 energies bench shape": (
-            lambda: fk.energies_exact_folded(bench, w.bench_table, n), bench, ()),
-        "row 7 states (prefix circuits)": (lambda: fk.population_states_folded(pre, n), pre, ()),
-        "row 8 sweep": (lambda: fk.nft_layer_sweep_folded(*sweep), None, ()),
-        "row 9 probabilities": (lambda: fk.population_probs_folded(full, n), full, ()),
-        "row 10 sampled from |0>": (lambda: fk.sampled_shot_indices_folded(full, frac, n), full,
-                                    ()),
+            lambda: fk.energies_exact_folded(bench, bench_table, n), fold(bench), REPS),
+        "row 7 states (prefix circuits)": (lambda: fk.population_states_folded(pre, n), fold(pre),
+                                           REPS),
+        "row 8 sweep": (lambda: fk.nft_layer_sweep_folded(*sweep), None, 3),
+        "row 9 probabilities": (lambda: fk.population_probs_folded(full, n), fold(full), REPS),
+        "row 10 sampled from |0>": (lambda: fk.sampled_shot_indices_folded(full, frac, n),
+                                    fold(full), REPS),
         "row 10 sampled from prefix": (
-            lambda: fk.sampled_shot_indices_folded(suf, frac, n, prefix), suf, ()),
-        "row 11 grouped TFIM from |0>": (lambda: grouped(None), full, rotations["full"]),
-        "row 11 grouped TFIM from prefix": (lambda: grouped(prefix), suf, rotations["suf"]),
+            lambda: fk.sampled_shot_indices_folded(suf, frac, n, prefix), fold(suf), REPS),
+        "row 11 grouped TFIM from |0>": (lambda: grouped(None),
+                                         fold(full, rotations["full"]), REPS),
+        "row 11 grouped TFIM from prefix": (lambda: grouped(prefix),
+                                            fold(suf, rotations["suf"]), REPS),
     }
 
     out = {}
-    for name, (fn, pipeline, rotated) in calls.items():
-        ms = cs.time_ms(fn, 3 if pipeline is None else REPS)
+    for name, (fn, moved_fn, reps) in calls.items():
+        ms = cs.time_ms(fn, reps)
         record = {"ms": ms}
-        if hasattr(cs, "engine_bytes") and pipeline is not None:
-            moved = cs.engine_bytes(pipeline, n, rotated)
+        if moved_fn is not None:
+            moved = moved_fn()
             record.update(engine_bytes=moved, engine_gb_per_s=moved / ms / 1e6)
         out[name] = record
     return out
@@ -146,7 +190,7 @@ def main(argv=None) -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("fold_engine_ab: no CUDA device is available", file=sys.stderr)
+        print("engine_ab: no CUDA device is available", file=sys.stderr)
         return 2
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
