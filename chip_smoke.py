@@ -15,10 +15,12 @@ with elapsed seconds:
    ``-Xptxas -v`` lines;
 3. slot kernels at full width (n=20): every slot kernel against its plain
    PyTorch version on the same inputs on the card, timed with CUDA events,
-   with the slot engine's plane bytes per call and GB/s (rows 1, 2, 5);
+   with the slot engine's plane bytes per call and GB/s (rows 1, 2, 5)
+   and the sweep's bytes by its design's rule and GB/s (row 3);
 4. fold kernels at the same shapes: every fold kernel against its plain
    version, the fold energies against the slot energies (the two routes
-   compute one function), equal bits from equal inputs, timings;
+   compute one function), equal bits from equal inputs, timings, the
+   folded sweep's design bytes and GB/s (row 8);
 5. sampled kernels at the same shapes with 512 shots (threefry uniforms,
    ``queasars_tpu_torch/utils/prng.py``), from |0...0> and from prefix
    states: each against its plain version and the fold sampler against the
@@ -117,6 +119,13 @@ FLOPS_PER_PAIR = 24
 FLOPS_PER_AMPLITUDE_ENERGY = 5  # (re^2 + im^2) * table, accumulated
 FLOPS_PER_AMPLITUDE_PROB = 3
 FLOPS_PER_AMPLITUDE_SAMPLE = 4  # |psi|^2 and one add of the running sum
+#: the sweeps' pair sums: |a|^2, |b|^2, Re and Im a b* (12) and eight
+#: products accumulated (16) per pair the probed gate acts on; T |x|^2
+#: accumulated (5) per amplitude where a CU3's control bit is 0
+FLOPS_PER_PAIR_SUMS = 28
+FLOPS_PER_AMPLITUDE_OFF = 5
+#: the sweeps' reset_interval (NFTConfig's default)
+SWEEP_RESET = 32
 SLOT_SOURCE = "queasars_tpu_torch/csrc/slot_kernels.cu"
 FOLD_SOURCE = "queasars_tpu_torch/csrc/fold_kernels.cu"
 COMPACT_SOURCE = "queasars_tpu_torch/csrc/compact_kernels.cu"
@@ -398,11 +407,92 @@ def slot_engine_bytes(gate_types, layer_mask, n_qubits) -> int:
 
 
 def engine_rate(name, moved, ms) -> str:
-    """An engine's bytes for one call (``engine_bytes`` or
-    ``slot_engine_bytes``) and those bytes over the call's measured time."""
+    """An engine's bytes for one call (``engine_bytes``,
+    ``slot_engine_bytes`` or ``sweep_engine_bytes``) and those bytes over
+    the call's measured time."""
     rate = moved / ms * 1e3
     return (f"{name}: engine {moved / 1e9:.4f} GB per call in {ms:.3f} ms, {rate / 1e9:.1f} GB/s "
             f"({rate / PEAK_BYTES_PER_S:.1%} of 3.35 TB/s)")
+
+
+def sweep_plan(gate_types, coords, n_free, active, n_qubits, maxiter, reset_interval):
+    """The sweeps' schedule by their design's rule (csrc/sweep.cuh) on these
+    inputs: each rebuild step's probed qubit per individual, every
+    transition (individual, last qubit, next qubit), and the sweep_pass
+    launches (one per rebuild and per step with a transition)."""
+    gt = gate_types.cpu().numpy()
+    qubits = coords[:, :, 0].cpu().numpy().clip(0, n_qubits - 1)
+    n_free, active = n_free.cpu().numpy(), active.cpu().numpy()
+    pop = gt.shape[0]
+
+    def probed(k):
+        return [int(qubits[p, k % max(int(n_free[p]), 1)]) for p in range(pop)]
+
+    rebuilds, transitions, launches = [], [], 0
+    for k in range(max(maxiter, 1)):
+        now = probed(k)
+        if k % reset_interval == 0:
+            rebuilds.append(now)
+            launches += 1
+            continue
+        last = probed(k - 1)
+        moved = [(p, last[p], now[p]) for p in range(pop)
+                 if active[p] and n_free[p] > 0 and last[p] != now[p]]
+        transitions += moved
+        launches += 1 if moved else 0
+    return {"gate_types": gt, "n_qubits": n_qubits, "rebuilds": rebuilds,
+            "transitions": transitions, "launches": launches}
+
+
+def sweep_engine_bytes(plan, route) -> int:
+    """Device-memory traffic of one sweep call by its design's rule: per
+    rebuild and individual the route's engine on the swept layer (slot: one
+    read+write pass at n <= 13, two above; fold: the same per kron layer
+    with work, the V^dagger layer where the layer holds a CU3; an engine
+    with nothing to apply copies once) and one read of BASE for the sums;
+    per transition one read and write of BASE (a read where neither gate
+    applies); the table once per sweep_pass launch."""
+    gt, n = plan["gate_types"], plan["n_qubits"]
+    plane = 8 << n
+    gated = (gt == 1) | (gt == 3)
+    per_layer = 1 if n <= 13 else 2
+    total = plan["launches"] * (4 << n)
+    for probed in plan["rebuilds"]:
+        for p, q in enumerate(probed):
+            rest = gated[p].copy()
+            rest[q] = False
+            if route == "slot":
+                passes = per_layer if rest.any() else 1
+            else:
+                krons = int((gt[p] == 3).any()) + int(gated[p].any())
+                passes = (1 if n <= 13 else per_layer * krons) if krons else 1
+            total += passes * 2 * plane + plane
+    for p, last, q in plan["transitions"]:
+        total += (2 if gated[p, last] or gated[p, q] else 1) * plane
+    return total
+
+
+def sweep_flops(plan) -> float:
+    """FLOPs of one sweep call by its design's rule: each rebuild's layer
+    without the probed gate, every pass's pair sums, and each transition's
+    two gates."""
+    gt, n = plan["gate_types"], plan["n_qubits"]
+    pairs, dim = 1 << (n - 1), 1 << n
+
+    def gate(p, q):
+        return FLOPS_PER_PAIR * pairs * {1: 1.0, 3: 0.5}.get(int(gt[p, q]), 0.0)
+
+    def sums(p, q):
+        acting = pairs // 2 if gt[p, q] == 3 else pairs
+        return FLOPS_PER_PAIR_SUMS * acting + FLOPS_PER_AMPLITUDE_OFF * (dim - 2 * acting)
+
+    total = 0.0
+    for probed in plan["rebuilds"]:
+        for p, q in enumerate(probed):
+            total += sum(gate(p, r) for r in range(n) if r != q) + sums(p, q)
+    for p, last, q in plan["transitions"]:
+        total += gate(p, last) + gate(p, q) + sums(p, q)
+    return total
 
 
 class Workload:
@@ -438,6 +528,8 @@ class Workload:
         self.coords, self.n_free = coords.to(dev), n_free.to(dev)
         self.active = self.n_free > 0
         self.active[0] = False
+        self.sweep_plan = sweep_plan(self.gt1, self.coords, self.n_free, self.active, n,
+                                     SOLVE["maxiter"], SWEEP_RESET)
         self.bench = random_genomes(n, BENCH["layers"], BENCH["population"], 0)
         self.bench_table = synthetic_table(n, BENCH["terms"])
 
@@ -453,21 +545,26 @@ class Workload:
     def bounds(self):
         """The least time of each function at these shapes: each input read
         once, each output written once, against the slot route's FLOPs.
-        A slot kernel and its fold counterpart share one bound."""
+        A slot kernel and its fold counterpart share one bound.  A sweep's
+        FLOPs are its design's (``sweep_flops``); ``sweep_probes`` is the
+        bound of the 2 maxiter + 1 whole-layer evaluations the reference
+        makes instead."""
         import torch
 
         dim, pop, n = 1 << N_QUBITS, self.pop, N_QUBITS
         gt, mask = self.gt, self.mask
         one = torch.ones((pop, 1), dtype=torch.bool, device=DEVICE)
         layer_flops = circuit_flops(self.gt1[:, None], one, n)
-        evals = 2 * SOLVE["maxiter"] + 1 + (SOLVE["maxiter"] - 1) // 32
+        evals = 2 * SOLVE["maxiter"] + 1 + (SOLVE["maxiter"] - 1) // SWEEP_RESET
         states = bound(genome_bytes(gt, mask) + 8 * dim * pop, circuit_flops(gt, self.pmask, n))
         energies = bound(genome_bytes(gt, mask) + 4 * dim + 8 * dim * pop + 4 * pop,
                          circuit_flops(gt, self.smask, n) + FLOPS_PER_AMPLITUDE_ENERGY * dim * pop)
         probs = bound(genome_bytes(gt, mask) + 4 * dim * pop,
                       circuit_flops(gt, mask, n) + FLOPS_PER_AMPLITUDE_PROB * dim * pop)
-        sweep = bound(8 * dim * pop + 4 * dim + pop * (self.k_max * 8 + 2 * n * 12 + 9),
-                      evals * (layer_flops + FLOPS_PER_AMPLITUDE_ENERGY * dim * pop))
+        sweep_bytes = 8 * dim * pop + 4 * dim + pop * (self.k_max * 8 + 2 * n * 12 + 9)
+        sweep = bound(sweep_bytes, sweep_flops(self.sweep_plan))
+        sweep_probes = bound(sweep_bytes,
+                             evals * (layer_flops + FLOPS_PER_AMPLITUDE_ENERGY * dim * pop))
         bgt, _, _, bmask = self.bench
         bench = bound(genome_bytes(bgt, bmask) + 4 * dim + 4 * bgt.shape[0],
                       circuit_flops(bgt, bmask, n) + FLOPS_PER_AMPLITUDE_ENERGY * dim * bgt.shape[0])
@@ -482,7 +579,7 @@ class Workload:
                "population_probs": probs, "nft_layer_sweep": sweep,
                "sampled_shot_indices": sampled}
         out.update({f"{k}_folded": v for k, v in list(out.items())})
-        out.update(bench=bench, bench_sampled=bench_sampled)
+        out.update(bench=bench, bench_sampled=bench_sampled, sweep_probes=sweep_probes)
         return out
 
 
@@ -549,7 +646,7 @@ def phase_kernels(w):
     # sweep kernel: the last-layer search, maxiter 30, compared through
     # energies of the full circuits at the final angles
     args = (w.gt1, w.ctrl1, w.ang1, w.coords, w.n_free, w.active, prefix, table, n,
-            SOLVE["maxiter"], 32)
+            SOLVE["maxiter"], SWEEP_RESET)
     a_k, z_k = sk.nft_layer_sweep(*args)
     a_p, _ = sk.nft_layer_sweep_plain(*args)
     e_k, e_p = w.full_energies(a_k), w.full_energies(a_p)
@@ -564,10 +661,27 @@ def phase_kernels(w):
     )
     say(f"  nft_layer_sweep: mean energy {float(e_k.mean()):.4f} from "
         f"{float(w.full_energies(w.ang1).mean()):.4f}")
+    sweep_records(records["nft_layer_sweep"], w, "slot", bounds)
     for name, m in (("population_states", pmask), ("energies_exact", smask)):
         say("  " + engine_rate(name, slot_engine_bytes(gt, m, n), records[name]["ms"]))
     say("  " + engine_rate("energies_exact bench", slot_engine_bytes(bgt, bmask, n), bench_ms))
     return finish_records(records, bounds)
+
+
+def sweep_records(rec, w, route, bounds):
+    """A sweep's design-rule bytes and rate beside its time, and beside its
+    bound the two others: the reference's 2 maxiter + 1 layer evaluations
+    and the design's bytes over 3.35 TB/s."""
+    plan = w.sweep_plan
+    moved = sweep_engine_bytes(plan, route)
+    rec["probe_bound"] = bounds["sweep_probes"]
+    rec["design_bound"] = (moved / PEAK_BYTES_PER_S * 1e3, "bytes")
+    say(f"  {route} sweep: {len(plan['rebuilds'])} rebuilds, {len(plan['transitions'])} "
+        f"transitions in {plan['launches']} sweep_pass launches; bound of the reference's "
+        f"layer evaluations {rec['probe_bound'][0]:.4f} ms ({rec['probe_bound'][1]}), of the "
+        f"design's bytes {rec['design_bound'][0]:.4f} ms")
+    name = "nft_layer_sweep" if route == "slot" else "nft_layer_sweep_folded"
+    say("  " + engine_rate(name, moved, rec["ms"]))
 
 
 def finish_records(records, bounds):
@@ -666,7 +780,7 @@ def phase_fold_kernels(w):
     meta = [torch.as_tensor(m, device=DEVICE) for m in fk.fold_sweep_metadata(
         w.gt1.cpu().numpy(), w.ctrl1.cpu().numpy(), n)]
     args = (w.gt1, w.ang1, w.coords, w.n_free, w.active, prefix, table, *meta, n,
-            SOLVE["maxiter"], 32)
+            SOLVE["maxiter"], SWEEP_RESET)
     a_k, z_k = fk.nft_layer_sweep_folded(*args)
     a_p, _ = fk.nft_layer_sweep_folded_plain(*args)
     e_k, e_p = w.full_energies(a_k), w.full_energies(a_p)
@@ -681,6 +795,7 @@ def phase_fold_kernels(w):
     )
     say(f"  nft_layer_sweep_folded: mean energy {float(e_k.mean()):.4f} from "
         f"{float(w.full_energies(w.ang1).mean()):.4f}")
+    sweep_records(records["nft_layer_sweep_folded"], w, "fold", bounds)
     for name, pipe in (("population_states_folded", pre_pipe),
                        ("energies_exact_folded", suf_pipe),
                        ("population_probs_folded", full_pipe)):

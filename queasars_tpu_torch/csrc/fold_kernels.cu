@@ -77,29 +77,27 @@
 //     with no rotation (a Z-basis group) samples the work planes themselves.
 //     The sampled kernel on the pipeline extended by that rotation layer
 //     runs the same rounds on the same values, so both give equal bits.
-//   * NFT sweep: the step loop runs on the host side of this library and only
-//     enqueues launches.  Per step: BASE = REST . prefix (the swept layer with
-//     the probed qubit's factors and CDiag slot replaced by the identity), nine
-//     pair sums over (base[i], base[i ^ 2^q], table[i], table[i ^ 2^q]) in a
-//     fixed order, then one thread per individual forms z1 and z3 (and z0 on
-//     reset steps) as scalar combinations of the sums, applies the 3-point
-//     update with atan2f and rebuilds that qubit's factors.
+//   * NFT sweep (sweep.cuh's step, shared with the slot sweep): BASE = REST .
+//     prefix (the swept layer with the probed qubit's factors and CDiag slot
+//     replaced by the identity) comes from this engine on rebuild steps (the
+//     first, then every reset_interval), with the layer's factors rebuilt on
+//     the card from the current angles; between rebuilds one fused pass per
+//     transition redoes the last probed gate, undoes the next and writes the
+//     nine pair sums over (base[i], base[i ^ 2^q], table[i], table[i ^ 2^q]),
+//     and one thread per individual takes z1, z3 and the 3-point update from
+//     the sums.
 
 #include <cuda_runtime.h>
 
 #include "common.cuh"
 #include "sampler.cuh"
+#include "sweep.cuh"
 #include "tile.cuh"
 
 namespace {
 
-constexpr int kGateRot = 1;
-constexpr int kGateCrot = 3;
 constexpr int kLaneBits = 7;
 constexpr int kMaxSlots = 11;  // CDiag slots of one layer (absorbed and not): at most n / 2
-constexpr int kPairSums = 9;
-constexpr float kHalfPi = 1.57079632679489662f;
-constexpr float kPi = 3.14159265358979324f;
 
 // The pipeline tensors of one population (FoldPipeline field by field).
 struct Fold {
@@ -438,145 +436,38 @@ __device__ void slot_factors(int gate, const float* angle, float* main, float* v
   }
 }
 
-struct Sweep {
-  float* factors;             // [P, 2, n, 8]: kron 0 = vdag, kron 1 = main
-  float* phase;               // [P, 1, D, 4]
-  int* exclude;               // [P] probed qubit of the current step
-  const int* gate_types;      // [P, n]
-  const int* coords;          // [P, K, 2] (qubit, angle)
-  const int* n_free;          // [P]
-  const unsigned char* active;  // [P]
-  const int* diag_ctrl;       // [P, 1, D]
-  const int* slot_of_q;       // [P, 1, n]
-  int pop, n_qubits, k_max, d_slots;
+// The swept layer's two kron layers and CDiag phases, as the fold engine
+// reads them, and what rebuilds them from the angles.
+struct LayerFactors {
+  float* factors;         // [P, 2, n, 8]: kron 0 = vdag, kron 1 = main
+  float* phase;           // [P, 1, D, 4]
+  const int* gate_types;  // [P, n]
+  const int* slot_of_q;   // [P, 1, n]
+  int pop, n_qubits, d_slots;
 };
 
-__device__ void refresh_qubit(const Sweep& w, const float* angles, int p, int q) {
-  const int n = w.n_qubits;
-  float* fac = w.factors + (long long)p * 2 * n * 8;
-  float phase[4];
-  slot_factors(w.gate_types[p * n + q], angles + (p * n + q) * 3, fac + (n + q) * 8, fac + q * 8,
-               phase);
-  const int slot = w.slot_of_q[p * n + q];
-  if (slot >= 0) {
-    for (int e = 0; e < 4; ++e) w.phase[((long long)p * w.d_slots + slot) * 4 + e] = phase[e];
-  }
-}
-
-__global__ void sweep_refresh_all(Sweep w, const float* angles) {
+// Every qubit's factors (and CDiag phases) of the swept layer at angles.
+__global__ void sweep_refresh_all(LayerFactors w, const float* angles) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= w.pop * w.n_qubits) return;
-  refresh_qubit(w, angles, e / w.n_qubits, e % w.n_qubits);
-}
-
-__device__ int probed_index(const Sweep& w, int p, int k) {
-  return k % max(w.n_free[p], 1);
-}
-
-__global__ void sweep_select(Sweep w, int k) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= w.pop) return;
-  w.exclude[p] = w.coords[(p * w.k_max + probed_index(w, p, k)) * 2];
-}
-
-// The nine pair sums of BASE around the probed qubit q, per block over a
-// fixed chunk of amplitude pairs (i0 with bit q clear, i1 = i0 | 2^q):
-// f0 = sum T |psi|^2 where a CU3's control bit is 0, and where it acts
-// (control bit 1, or a U3): f1..f4 = sum T(i0) (|a|^2, |b|^2, Re a b*,
-// Im a b*), f5..f8 the same with T(i1); a = base[i0], b = base[i1].
-__global__ void pair_sums(const float* base, const float* table, Sweep w, float* partial,
-                          long long chunk) {
-  __shared__ float shared[kReduceThreads];
-  const int p = blockIdx.y;
-  const int n = w.n_qubits;
-  const long long dim = 1LL << n;
-  const int q = w.exclude[p];
-  const int gate = w.gate_types[p * n + q];
-  const int slot = w.slot_of_q[p * n + q];
-  const int control = gate == kGateCrot ? w.diag_ctrl[(long long)p * w.d_slots + max(slot, 0)] : -1;
-  const float* re = base + (long long)p * 2 * dim;
-  const float* im = re + dim;
-  float acc[kPairSums];
-  for (int s = 0; s < kPairSums; ++s) acc[s] = 0.0f;
-  const long long begin = blockIdx.x * chunk;
-  const long long low_mask = (1LL << q) - 1;
-  for (long long j = begin + threadIdx.x; j < begin + chunk; j += blockDim.x) {
-    const long long i0 = ((j >> q) << (q + 1)) | (j & low_mask);
-    const long long i1 = i0 | (1LL << q);
-    const float ar = re[i0], ai = im[i0], br = re[i1], bi = im[i1];
-    const float ta = table[i0], tb = table[i1];
-    const float abs_a = ar * ar + ai * ai, abs_b = br * br + bi * bi;
-    if (control >= 0 && ((i0 >> control) & 1) == 0) {
-      acc[0] += ta * abs_a + tb * abs_b;
-      continue;
-    }
-    const float cr = ar * br + ai * bi, ci = ai * br - ar * bi;
-    acc[1] += ta * abs_a;
-    acc[2] += ta * abs_b;
-    acc[3] += ta * cr;
-    acc[4] += ta * ci;
-    acc[5] += tb * abs_a;
-    acc[6] += tb * abs_b;
-    acc[7] += tb * cr;
-    acc[8] += tb * ci;
-  }
-  for (int s = 0; s < kPairSums; ++s) {
-    const float total = block_sum(acc[s], shared);
-    if (threadIdx.x == 0) partial[((long long)p * kPairSums + s) * gridDim.x + blockIdx.x] = total;
-    __syncthreads();
+  const int n = w.n_qubits, p = e / n, q = e % n;
+  float* fac = w.factors + (long long)p * 2 * n * 8;
+  float phase[4];
+  slot_factors(w.gate_types[e], angles + (long long)e * 3, fac + (n + q) * 8, fac + q * 8, phase);
+  const int slot = w.slot_of_q[e];
+  if (slot >= 0) {
+    for (int k = 0; k < 4; ++k) w.phase[((long long)p * w.d_slots + slot) * 4 + k] = phase[k];
   }
 }
 
-// E(t) of the probed coordinate at value t from the nine pair sums: the
-// probed gate's U3 entries at t weight the sums (the reference's
-// form_energy, pallas_fold_kernels.py:1545-1579).
-__device__ float form_energy(const float* f, const float* angle, int a_i, bool gated, float t) {
-  const float te = a_i == 0 ? t : angle[0];
-  const float pe = a_i == 1 ? t : angle[1];
-  const float le = a_i == 2 ? t : angle[2];
-  const float ch = cosf(te * 0.5f), sh = sinf(te * 0.5f);
-  const float u00r = gated ? ch : 1.0f, u00i = 0.0f;
-  const float u01r = gated ? -cosf(le) * sh : 0.0f, u01i = gated ? -sinf(le) * sh : 0.0f;
-  const float u10r = gated ? cosf(pe) * sh : 0.0f, u10i = gated ? sinf(pe) * sh : 0.0f;
-  const float u11r = gated ? cosf(pe + le) * ch : 1.0f;
-  const float u11i = gated ? sinf(pe + le) * ch : 0.0f;
-  const float c1 = u00r * u00r + u00i * u00i, c2 = u01r * u01r + u01i * u01i;
-  const float re01 = u00r * u01r + u00i * u01i, im01 = u00i * u01r - u00r * u01i;
-  const float c5 = u10r * u10r + u10i * u10i, c6 = u11r * u11r + u11i * u11i;
-  const float re11 = u10r * u11r + u10i * u11i, im11 = u10i * u11r - u10r * u11i;
-  return f[0] + c1 * f[1] + c2 * f[2] + 2.0f * re01 * f[3] - 2.0f * im01 * f[4] + c5 * f[5] +
-         c6 * f[6] + 2.0f * re11 * f[7] - 2.0f * im11 * f[8];
-}
-
-// One NFT step per individual: z0 (re-measured from the sums on reset
-// steps), z1 and z3 from the sums, the 3-point update with atan2f, and the
-// probed qubit's factors rebuilt from its new angle.
-__global__ void sweep_update(Sweep w, float* angles, float* z, const float* sums, int k,
-                             int reset_interval) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= w.pop) return;
-  const int n = w.n_qubits;
-  const int idx = probed_index(w, p, k);
-  const int q = w.coords[(p * w.k_max + idx) * 2];
-  const int a_i = w.coords[(p * w.k_max + idx) * 2 + 1];
-  const int gate = w.gate_types[p * n + q];
-  const bool gated = gate == kGateRot || gate == kGateCrot;
-  float* angle = angles + (p * n + q) * 3;
-  const float* f = sums + (long long)p * kPairSums;
-  const float theta = angle[a_i];
-  const float z0 = (k > 0 && k % reset_interval == 0) ? form_energy(f, angle, a_i, gated, theta)
-                                                      : z[p];
-  const float z1 = form_energy(f, angle, a_i, gated, theta + kHalfPi);
-  const float z3 = form_energy(f, angle, a_i, gated, theta - kHalfPi);
-  const float mid = (z1 + z3) * 0.5f;
-  const float half_diff = (z1 - z3) * 0.5f;
-  const float d = z0 - mid;
-  const bool apply = w.active[p] && w.n_free[p] > 0;
-  if (apply) {
-    angle[a_i] = theta + atan2f(half_diff, d) + kPi;
-    refresh_qubit(w, angles, p, q);
-  }
-  z[p] = apply ? mid - sqrtf(d * d + half_diff * half_diff) : z0;
+// [P, n] controls of the swept layer from its metadata (-1 where a qubit
+// holds no CU3), for the shared step's passes.
+__global__ void layer_controls(int* controls, const int* diag_ctrl, const int* slot_of_q, int pop,
+                               int n, int d_slots) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= pop * n) return;
+  const int slot = slot_of_q[e];
+  controls[e] = slot >= 0 ? diag_ctrl[(long long)(e / n) * d_slots + slot] : -1;
 }
 
 }  // namespace
@@ -705,59 +596,42 @@ int qt_grouped_shot_indices_folded(int* out, float* work, float* rotated, float*
   return (int)cudaGetLastError();
 }
 
-// First-pass blocks of the sweep's pair sums per individual.
-int qt_fold_pair_partials(int n_qubits) {
-  const long long pairs = 1LL << (n_qubits - 1);
-  return (int)(pairs / reduce_chunk(pairs));
-}
-
 // Replaces pallas_nft_layer_sweep_folded (pallas_fold_kernels.py:1623).
 // Inputs: the swept layer's gate_types [P, n], start angles [P, n, 3],
 // coords [P, K, 2] (qubit, angle), n_free [P], active [P], prefix states
-// [P, 2, 2^n], table [2^n], and fold_sweep_metadata's diag_ctrl [P, 1, D],
+// [P, 2, 2^n], table [2^n], fold_sweep_metadata's diag_ctrl [P, 1, D],
 // diag_tgt [P, 1, D], slot_of_q [P, 1, n], diag_count [P, 1, 1],
-// group_active [P, 2, G].  Outputs: angles_out [P, n, 3], z [P].
-// Scratch: factors [P, 2, n, 8], phase [P, 1, D, 4], exclude [P] int32,
-// base [P, 2, 2^n], partial [P, qt_energy_partials(n)],
-// pair_partial [P, 9, qt_fold_pair_partials(n)], sums [P, 9].
-int qt_fold_nft_sweep(float* angles_out, float* z, float* factors, float* phase, int* exclude,
-                      float* base, float* partial, float* pair_partial, float* sums,
-                      const int* gate_types, const float* angles, const int* coords,
-                      const int* n_free, const unsigned char* active, const float* prefix,
-                      const float* table, const int* diag_ctrl, const int* diag_tgt,
-                      const int* slot_of_q, const int* diag_count, const int* group_active,
-                      int pop, int n_qubits, int k_max, int d_slots, int maxiter,
-                      int reset_interval, void* stream) {
+// group_active [P, 2, G], and transitions, a HOST array of maxiter flags (as
+// qt_nft_layer_sweep's).  Outputs: angles_out [P, n, 3], z [P].
+// Scratch: factors [P, 2, n, 8], phase [P, 1, D, 4], probe [P] int32,
+// controls [P, n] int32, base [P, 2, 2^n], partial [P, 9,
+// qt_sweep_partials(n)], sums [P, 9].
+int qt_fold_nft_sweep(float* angles_out, float* z, float* factors, float* phase, int* probe,
+                      int* controls, float* base, float* partial, float* sums,
+                      const unsigned char* transitions, const int* gate_types,
+                      const float* angles, const int* coords, const int* n_free,
+                      const unsigned char* active, const float* prefix, const float* table,
+                      const int* diag_ctrl, const int* diag_tgt, const int* slot_of_q,
+                      const int* diag_count, const int* group_active, int pop, int n_qubits,
+                      int k_max, int d_slots, int maxiter, int reset_interval, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  const long long dim = 1LL << n_qubits;
   cudaError_t err = cudaMemcpyAsync(angles_out, angles, (size_t)pop * n_qubits * 3 * sizeof(float),
                                     cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(exclude, 0xff, (size_t)pop * sizeof(int), s);  // -1: nothing excluded
-  if (err != cudaSuccess) return (int)err;
-  const Sweep w{factors, phase, exclude, gate_types, coords, n_free, active, diag_ctrl, slot_of_q,
-                pop, n_qubits, k_max, d_slots};
+  const unsigned int per_qubit = blocks_for((long long)pop * n_qubits, 128);
+  layer_controls<<<per_qubit, 128, 0, s>>>(controls, diag_ctrl, slot_of_q, pop, n_qubits, d_slots);
+  const LayerFactors lf{factors, phase, gate_types, slot_of_q, pop, n_qubits, d_slots};
   Fold f = make_fold(factors, diag_ctrl, diag_tgt, phase, diag_count, group_active, nullptr,
                      nullptr, nullptr, nullptr, 2, n_qubits, d_slots);
-  f.exclude = exclude;
-  const unsigned int small = blocks_for(pop, 128);
-  sweep_refresh_all<<<blocks_for((long long)pop * n_qubits, 128), 128, 0, s>>>(w, angles_out);
-
-  err = run_folded(base, prefix, pop, f, s);
-  if (err != cudaSuccess) return (int)err;
-  reduce_energies(base, table, partial, z, pop, dim, s);
-  const long long pairs = dim / 2;
-  const long long chunk = reduce_chunk(pairs);
-  const int n_partials = (int)(pairs / chunk);
-  for (int k = 0; k < maxiter; ++k) {
-    sweep_select<<<small, 128, 0, s>>>(w, k);
-    err = run_folded(base, prefix, pop, f, s);
-    if (err != cudaSuccess) return (int)err;
-    pair_sums<<<dim3(n_partials, pop), kReduceThreads, 0, s>>>(base, table, w, pair_partial, chunk);
-    energy_finish<<<pop * kPairSums, kReduceThreads, 0, s>>>(pair_partial, sums, n_partials);
-    sweep_update<<<small, 128, 0, s>>>(w, angles_out, z, sums, k, reset_interval);
-  }
-  return (int)cudaGetLastError();
+  f.exclude = probe;
+  const SweepArgs w{angles_out, z, base, partial, sums, probe, gate_types, controls, coords,
+                    n_free, active, table, pop, n_qubits, k_max};
+  const auto rebuild = [&]() {
+    sweep_refresh_all<<<per_qubit, 128, 0, s>>>(lf, angles_out);
+    return run_folded(base, prefix, pop, f, s);
+  };
+  err = run_sweep(w, transitions, maxiter, reset_interval, rebuild, s);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 }  // extern "C"

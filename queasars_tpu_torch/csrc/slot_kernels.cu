@@ -41,7 +41,7 @@
 //     slots and masked layers are skipped.
 //   * skips: a pass whose individual has no active slot in its range
 //     returns at once.  The first pass with work reads the start state
-//     (initial[p % init_pop], or |0...0> made in registers) and the later
+//     (initial[p], or |0...0> made in registers) and the later
 //     ones work in place, so no copy-in pass runs; if no pass has work, the
 //     last one copies.
 //   * bound: each pass reads and writes the planes once (16 MB per
@@ -55,11 +55,13 @@
 //     (fixed-order per-block partials, then one block per individual; no float
 //     atomics), so equal inputs give equal bits from run to run -- an EVQE
 //     trajectory branches on energy order.
-//   * NFT sweep: the step loop runs on the host side of this library and only
-//     enqueues launches (no synchronisation): per step both probe states
-//     (+pi/2 and -pi/2) run as 2P circuits of the swept layer from the P
-//     prefix states, both energies are reduced, and one thread per
-//     individual runs the 3-point update with atan2f.
+//   * NFT sweep (sweep.cuh's step, shared with the fold sweep): BASE, the
+//     swept layer without the probed qubit's gate applied to the prefix,
+//     comes from this engine on P individuals on rebuild steps (the first,
+//     then every reset_interval), with that slot turned off; between
+//     rebuilds one fused pass per transition redoes the last probed gate,
+//     undoes the next and writes the nine pair sums, and one thread per
+//     individual takes z1, z3 and the 3-point update from the sums.
 //   * sampled shots: the circuit as above, then the hierarchical inverse-CDF
 //     epilogue of sampler.cuh on the planes in device memory.
 
@@ -67,24 +69,19 @@
 
 #include "common.cuh"
 #include "sampler.cuh"
+#include "sweep.cuh"
 #include "tile.cuh"
 
 namespace {
 
-constexpr int kGateRot = 1;
-constexpr int kGateCrot = 3;
 constexpr int kTopBits = 9;     // the widest top window
 constexpr int kMaxQubits = 31;  // in-state indices are 32-bit ints
-constexpr float kHalfPi = 1.57079632679489662f;
-constexpr float kPi = 3.14159265358979324f;
 
 struct Genome {
-  const int* gate_types;            // [genome_pop, n_layers, n_qubits]
-  const int* controls;              // [genome_pop, n_layers, n_qubits]
-  const float* angles;              // [angle_pop, n_layers, n_qubits, 3]
-  const unsigned char* layer_mask;  // [genome_pop, n_layers]; null = all on
-  int genome_pop;                   // state p uses genome p % genome_pop
-  int angle_pop;                    // state p uses angles p % angle_pop
+  const int* gate_types;            // [P, n_layers, n_qubits]
+  const int* controls;              // [P, n_layers, n_qubits]
+  const float* angles;              // [P, n_layers, n_qubits, 3]
+  const unsigned char* layer_mask;  // [P, n_layers]; null = all on
   int n_layers;
   int n_qubits;
 };
@@ -151,12 +148,12 @@ __device__ __forceinline__ void store_small(const float (&xr)[kRegs], const floa
   }
 }
 
-// True when slot q of layer k of genome gi applies a gate (U3 or CU3 in a
+// True when slot q of layer k of genome p applies a gate (U3 or CU3 in a
 // layer that is on).
-__device__ __forceinline__ bool slot_on(const Genome& g, int gi, int k, int q) {
+__device__ __forceinline__ bool slot_on(const Genome& g, int p, int k, int q) {
   if (k >= g.n_layers) return false;
-  if (g.layer_mask != nullptr && !g.layer_mask[gi * g.n_layers + k]) return false;
-  const int type = g.gate_types[((long long)gi * g.n_layers + k) * g.n_qubits + q];
+  if (g.layer_mask != nullptr && !g.layer_mask[p * g.n_layers + k]) return false;
+  const int type = g.gate_types[((long long)p * g.n_layers + k) * g.n_qubits + q];
   return type == kGateRot || type == kGateCrot;
 }
 
@@ -237,12 +234,12 @@ __device__ __forceinline__ void round_slot(float (&xr)[kRegs], float (&xi)[kRegs
 
 // Layers [k_begin, k_end) of pass ps on tile blockIdx.x of individual
 // blockIdx.y (semantics of _apply_u3_slot, pallas_kernels.py:55-115, slot
-// by slot).  The planes go from src (initial[p % init_pop]; null: |0...0>)
+// by slot).  The planes go from src (initial[p]; null: |0...0>)
 // to dst when no earlier pass of the run had work for this individual, else
 // dst is updated in place; ``last`` marks the run's last launch.
 __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
-    slot_pass(float* dst, const float* src, int init_pop, Genome g, SlotPass ps, int k_begin,
-              int k_end, int last) {
+    slot_pass(float* dst, const float* src, Genome g, SlotPass ps, int k_begin, int k_end,
+              int last) {
   extern __shared__ float tile_s[];  // re then im, 2^tile_bits each, swizzled
   __shared__ U3 u3_s[kTileBits];
   __shared__ int type_s[kTileBits], ctrl_s[kTileBits];
@@ -250,11 +247,10 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
   const int p = blockIdx.y, tile = blockIdx.x, t = threadIdx.x;
   const int n = g.n_qubits;
   const long long dim = 1LL << n;
-  const int gi = p % g.genome_pop, ai = p % g.angle_pop;
   int earlier = 0, work = 0;
   for (int e = t; e < min(k_end, g.n_layers) * n; e += blockDim.x) {
     const int k = e / n, q = e - k * n;
-    if (!slot_on(g, gi, k, q)) continue;
+    if (!slot_on(g, p, k, q)) continue;
     const int w = window_of(n, q);
     if (k < k_begin || (k == k_begin && w < ps.window)) earlier = 1;
     if (k >= k_begin && w == ps.window) work = 1;
@@ -265,7 +261,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
   float* out_re = dst + (long long)p * 2 * dim;
   float* out_im = out_re + dim;
   const float* in_re = earlier ? out_re
-                       : src != nullptr ? src + (long long)(p % init_pop) * 2 * dim
+                       : src != nullptr ? src + (long long)p * 2 * dim
                                         : nullptr;
   const float* in_im = in_re != nullptr ? in_re + dim : nullptr;
   float* s_re = tile_s;
@@ -281,11 +277,11 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
     if (k > k_begin) __syncthreads();  // the last layer's rounds are done with its slots
     for (int l = ps.lb_first + t; l < lb_last; l += blockDim.x) {
       const int q = ps.q_lo + l - ps.lb_first;
-      const bool on = slot_on(g, gi, k, q);
-      type_s[l] = on ? g.gate_types[((long long)gi * g.n_layers + k) * n + q] : 0;
+      const bool on = slot_on(g, p, k, q);
+      type_s[l] = on ? g.gate_types[((long long)p * g.n_layers + k) * n + q] : 0;
       if (on) {
-        ctrl_s[l] = max(g.controls[((long long)gi * g.n_layers + k) * n + q], 0);
-        const float* a = g.angles + (((long long)ai * g.n_layers + k) * n + q) * 3;
+        ctrl_s[l] = max(g.controls[((long long)p * g.n_layers + k) * n + q], 0);
+        const float* a = g.angles + (((long long)p * g.n_layers + k) * n + q) * 3;
         u3_s[l] = u3_entries(a[0], a[1], a[2]);
       }
     }
@@ -324,67 +320,22 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocks)
   }
 }
 
-// Probe angles of NFT step k: rows [0, P) shift the probed coordinate by
-// +pi/2, rows [P, 2P) by -pi/2 (the z1 and z3 probes of the TPU kernel).
-__global__ void sweep_probe_angles(const float* current, const int* coords, const int* n_free,
-                                   int k, int pop, int n_qubits, int k_max, float* probe) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= pop) return;
-  const int width = n_qubits * 3;
-  for (int e = 0; e < width; ++e) {
-    const float v = current[p * width + e];
-    probe[p * width + e] = v;
-    probe[(pop + p) * width + e] = v;
-  }
-  const int idx = k % max(n_free[p], 1);
-  const int q = coords[(p * k_max + idx) * 2];
-  const int a = coords[(p * k_max + idx) * 2 + 1];
-  const float theta = current[p * width + q * 3 + a];
-  probe[p * width + q * 3 + a] = theta + kHalfPi;
-  probe[(pop + p) * width + q * 3 + a] = theta - kHalfPi;
-}
-
-// The 3-point sinusoid update of _nft_layer_sweep_kernel (pallas_kernels.py:
-// 809-818), with atan2f in place of the polynomial _kernel_atan2.
-__global__ void sweep_update(float* current, float* z, const float* z13, const int* coords,
-                             const int* n_free, const unsigned char* active, int k, int pop,
-                             int n_qubits, int k_max) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= pop) return;
-  const int nf = n_free[p];
-  if (!(active[p] && nf > 0)) return;
-  const int idx = k % max(nf, 1);
-  const int q = coords[(p * k_max + idx) * 2];
-  const int a = coords[(p * k_max + idx) * 2 + 1];
-  float* slot = current + (p * n_qubits + q) * 3 + a;
-  const float theta = *slot;
-  const float z0 = z[p], z1 = z13[p], z3 = z13[pop + p];
-  const float mid = (z1 + z3) * 0.5f;
-  const float half_diff = (z1 - z3) * 0.5f;
-  const float d = z0 - mid;
-  const float shift = atan2f(half_diff, d);
-  *slot = theta + shift + kPi;
-  z[p] = mid - sqrtf(d * d + half_diff * half_diff);
-}
-
-cudaError_t launch_slot_pass(float* dst, const float* src, int init_pop, int pop,
-                             const Genome& g, int window, int k_begin, int k_end, int last,
-                             cudaStream_t s) {
+cudaError_t launch_slot_pass(float* dst, const float* src, int pop, const Genome& g, int window,
+                             int k_begin, int k_end, int last, cudaStream_t s) {
   const SlotPass ps = make_slot_pass(g.n_qubits, window);
   const int chunks = (ps.q_hi - ps.q_lo + kRegBits - 1) / kRegBits;
   const size_t smem =
       (k_end - k_begin) * chunks > 1 ? (2 * sizeof(float)) << ps.map.tile_bits : 0;
   const dim3 grid(tile_count(ps.map), pop);
-  slot_pass<<<grid, 1 << (ps.map.tile_bits - kRegBits), smem, s>>>(dst, src, init_pop, g, ps,
-                                                                     k_begin, k_end, last);
+  slot_pass<<<grid, 1 << (ps.map.tile_bits - kRegBits), smem, s>>>(dst, src, g, ps, k_begin,
+                                                                     k_end, last);
   return cudaGetLastError();
 }
 
 // The engine: every (layer, slot) of genome g on pop states, state p from
-// src[p % init_pop] (null: |0...0>), into dst [pop, 2, 2^n].  n <= 13: one
-// launch; otherwise one pass per window and layer (two at n <= 22).
-cudaError_t run_slots(float* dst, const float* src, int init_pop, int pop, const Genome& g,
-                      cudaStream_t s) {
+// src[p] (null: |0...0>), into dst [pop, 2, 2^n].  n <= 13: one launch;
+// otherwise one pass per window and layer (two at n <= 22).
+cudaError_t run_slots(float* dst, const float* src, int pop, const Genome& g, cudaStream_t s) {
   const int n = g.n_qubits;
   if (n < 1 || n > kMaxQubits) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(slot_pass, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -392,19 +343,27 @@ cudaError_t run_slots(float* dst, const float* src, int init_pop, int pop, const
   if (err != cudaSuccess) return err;
   const int layers = g.n_layers > 0 ? g.n_layers : 1;  // none: one empty pass copies
   const int windows = 1 + top_windows(n);
-  if (windows == 1) return launch_slot_pass(dst, src, init_pop, pop, g, 0, 0, layers, 1, s);
+  if (windows == 1) return launch_slot_pass(dst, src, pop, g, 0, 0, layers, 1, s);
   for (int k = 0; k < layers && err == cudaSuccess; ++k) {
     for (int w = 0; w < windows && err == cudaSuccess; ++w) {
-      err = launch_slot_pass(dst, src, init_pop, pop, g, w, k, k + 1,
-                             k == layers - 1 && w == windows - 1, s);
+      err = launch_slot_pass(dst, src, pop, g, w, k, k + 1, k == layers - 1 && w == windows - 1,
+                             s);
     }
   }
   return err;
 }
 
 Genome make_genome(const int* gate_types, const int* controls, const float* angles,
-                   const unsigned char* layer_mask, int pop, int n_layers, int n_qubits) {
-  return Genome{gate_types, controls, angles, layer_mask, pop, pop, n_layers, n_qubits};
+                   const unsigned char* layer_mask, int n_layers, int n_qubits) {
+  return Genome{gate_types, controls, angles, layer_mask, n_layers, n_qubits};
+}
+
+// The swept layer's gate types with each individual's probed slot off
+// (the rebuild's REST): rest[p, q] = 0 where q == probe[p].
+__global__ void rest_gates(int* rest, const int* gate_types, const int* probe, int pop, int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= pop * n) return;
+  rest[e] = e % n == probe[e / n] ? 0 : gate_types[e];
 }
 
 }  // namespace
@@ -422,8 +381,8 @@ int qt_population_states(float* out, const float* initial, const int* gate_types
                          const int* controls, const float* angles,
                          const unsigned char* layer_mask, int pop, int n_layers, int n_qubits,
                          void* stream) {
-  const Genome g = make_genome(gate_types, controls, angles, layer_mask, pop, n_layers, n_qubits);
-  cudaError_t err = run_slots(out, initial, pop, pop, g, (cudaStream_t)stream);
+  const Genome g = make_genome(gate_types, controls, angles, layer_mask, n_layers, n_qubits);
+  cudaError_t err = run_slots(out, initial, pop, g, (cudaStream_t)stream);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
@@ -435,8 +394,8 @@ int qt_energies_exact(float* out, float* work, float* partial, const float* init
                       int n_layers, int n_qubits, void* stream) {
   const long long dim = 1LL << n_qubits;
   const cudaStream_t s = (cudaStream_t)stream;
-  const Genome g = make_genome(gate_types, controls, angles, layer_mask, pop, n_layers, n_qubits);
-  cudaError_t err = run_slots(work, initial, pop, pop, g, s);
+  const Genome g = make_genome(gate_types, controls, angles, layer_mask, n_layers, n_qubits);
+  cudaError_t err = run_slots(work, initial, pop, g, s);
   if (err != cudaSuccess) return (int)err;
   reduce_energies(work, table, partial, out, pop, dim, s);
   return (int)cudaGetLastError();
@@ -449,52 +408,46 @@ int qt_population_probs(float* probs, float* work, const float* initial, const i
                         void* stream) {
   const long long dim = 1LL << n_qubits;
   const cudaStream_t s = (cudaStream_t)stream;
-  const Genome g = make_genome(gate_types, controls, angles, layer_mask, pop, n_layers, n_qubits);
-  cudaError_t err = run_slots(work, initial, pop, pop, g, s);
+  const Genome g = make_genome(gate_types, controls, angles, layer_mask, n_layers, n_qubits);
+  cudaError_t err = run_slots(work, initial, pop, g, s);
   if (err != cudaSuccess) return (int)err;
   write_probabilities(work, probs, pop, dim, s);
   return (int)cudaGetLastError();
 }
 
+// Pair-sum partials per individual and sum of the NFT sweeps'
+// (qt_nft_layer_sweep, qt_fold_nft_sweep) passes.
+int qt_sweep_partials(int n_qubits) { return sweep_blocks(n_qubits); }
+
 // Replaces pallas_nft_layer_sweep (pallas_kernels.py:837).
 // Inputs: the swept layer gate_types/controls [P, n], start angles [P, n, 3],
 // coords [P, K, 2] (qubit, angle), n_free [P], active [P], prefix states
-// [P, 2, 2^n], table [2^n].  Outputs: angles_out [P, n, 3], z [P].
-// Scratch: probe [2P, n, 3], work [2P, 2, 2^n], partial [2P, partials], z13 [2P].
-int qt_nft_layer_sweep(float* angles_out, float* z, float* probe, float* work, float* partial,
-                       float* z13, const int* gate_types, const int* controls,
-                       const float* angles, const int* coords, const int* n_free,
-                       const unsigned char* active, const float* prefix, const float* table,
-                       int pop, int n_qubits, int k_max, int maxiter, int reset_interval,
-                       void* stream) {
-  const long long dim = 1LL << n_qubits;
+// [P, 2, 2^n], table [2^n], and transitions, a HOST array of maxiter flags
+// (1 where some individual with active && n_free > 0 probes another qubit
+// than at the step before).  Outputs: angles_out [P, n, 3], z [P].
+// Scratch: base [P, 2, 2^n], partial [P, 9, qt_sweep_partials(n)],
+// sums [P, 9], probe [P] int32, rest [P, n] int32.
+int qt_nft_layer_sweep(float* angles_out, float* z, float* base, float* partial, float* sums,
+                       int* probe, int* rest, const unsigned char* transitions,
+                       const int* gate_types, const int* controls, const float* angles,
+                       const int* coords, const int* n_free, const unsigned char* active,
+                       const float* prefix, const float* table, int pop, int n_qubits, int k_max,
+                       int maxiter, int reset_interval, void* stream) {
+  if (n_qubits < 1 || n_qubits > kMaxQubits) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemcpyAsync(angles_out, angles, (size_t)pop * n_qubits * 3 * sizeof(float),
                                     cudaMemcpyDeviceToDevice, s);
   if (err != cudaSuccess) return (int)err;
-  const Genome current = make_genome(gate_types, controls, angles_out, nullptr, pop, 1, n_qubits);
-  Genome probes = current;
-  probes.angles = probe;
-  probes.angle_pop = 2 * pop;
-  const unsigned int small = blocks_for(pop, 128);
-
-  err = run_slots(work, prefix, pop, pop, current, s);
-  if (err != cudaSuccess) return (int)err;
-  reduce_energies(work, table, partial, z, pop, dim, s);
-  for (int k = 0; k < maxiter; ++k) {
-    if (k > 0 && k % reset_interval == 0) {
-      err = run_slots(work, prefix, pop, pop, current, s);
-      if (err != cudaSuccess) return (int)err;
-      reduce_energies(work, table, partial, z, pop, dim, s);
-    }
-    sweep_probe_angles<<<small, 128, 0, s>>>(angles_out, coords, n_free, k, pop, n_qubits, k_max, probe);
-    err = run_slots(work, prefix, pop, 2 * pop, probes, s);
-    if (err != cudaSuccess) return (int)err;
-    reduce_energies(work, table, partial, z13, 2 * pop, dim, s);
-    sweep_update<<<small, 128, 0, s>>>(angles_out, z, z13, coords, n_free, active, k, pop,
-                                        n_qubits, k_max);
-  }
-  return (int)cudaGetLastError();
+  const SweepArgs w{angles_out, z, base, partial, sums, probe, gate_types, controls, coords,
+                    n_free, active, table, pop, n_qubits, k_max};
+  const Genome layer = make_genome(rest, controls, angles_out, nullptr, 1, n_qubits);
+  const auto rebuild = [&]() {
+    rest_gates<<<blocks_for((long long)pop * n_qubits, 128), 128, 0, s>>>(rest, gate_types, probe,
+                                                                           pop, n_qubits);
+    return run_slots(base, prefix, pop, layer, s);
+  };
+  err = run_sweep(w, transitions, maxiter, reset_interval, rebuild, s);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 // Floats of sampler scratch per individual (qt_sampled_shot_indices,
@@ -512,8 +465,8 @@ int qt_sampled_shot_indices(int* out, float* work, float* scratch, const float* 
                             int n_layers, int n_qubits, int shots, void* stream) {
   if (n_qubits < 14 || n_qubits > 20) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  const Genome g = make_genome(gate_types, controls, angles, layer_mask, pop, n_layers, n_qubits);
-  cudaError_t err = run_slots(work, initial, pop, pop, g, s);
+  const Genome g = make_genome(gate_types, controls, angles, layer_mask, n_layers, n_qubits);
+  cudaError_t err = run_slots(work, initial, pop, g, s);
   if (err != cudaSuccess) return (int)err;
   err = sample_planes(work, u_frac, scratch, out, pop, n_qubits, shots, s);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();

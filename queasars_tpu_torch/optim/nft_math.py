@@ -1,9 +1,9 @@
 """The NFT sinusoid-fit update — single source of truth for the port.
 
 Counterpart of ``queasars_tpu/optim/nft_math.py``.  The CUDA sweep kernels
-(``sweep_update`` in ``csrc/slot_kernels.cu`` and ``csrc/fold_kernels.cu``)
-restate the same expressions; the plain sweeps of both kernel families
-step through :func:`layer_sweep_plain`.
+(``sweep_update`` in ``csrc/sweep.cuh``, shared by the slot and fold
+sweeps) restate the same expressions; the plain sweeps of both kernel
+families step through :func:`layer_sweep_plain`.
 
 Math (arXiv:1903.12166, matching qiskit's ``nakanishi_fujii_todo``): the
 objective is an exact sinusoid in each U3 angle,

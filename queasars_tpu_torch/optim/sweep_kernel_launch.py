@@ -7,12 +7,14 @@ share the contract:
   kernel, then the whole ``maxiter`` sweep on the slot sweep kernel;
 - folded (:func:`nft_layer_sweep_folded_launch`): the prefix's fold pipeline
   (absorbed phases on) through the folded states kernel, then the folded
-  sweep, whose probes apply the swept layer as two kron layers and a phase
-  pass with that layer's factors rebuilt on the card as angles move.
+  sweep, which applies the swept layer as two kron layers and a phase pass
+  with that layer's factors rebuilt on the card from the current angles.
 
-On the card neither kernel synchronises with the host; the folded variant
-first copies the swept layer's gate structure to the host (one wait per
-launch) to build the sweep metadata there, as the reference does.
+On the card each sweep first reads the steps at which some individual's
+probed qubit changes back to the host (``slot_kernels.sweep_transitions``,
+one wait), and the folded variant also copies the swept layer's gate
+structure to the host to build the sweep metadata there, as the reference
+does.  The step loops only enqueue launches.
 """
 
 from __future__ import annotations

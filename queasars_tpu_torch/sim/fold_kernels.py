@@ -33,7 +33,11 @@ here it is fp32 like the rest, closer to the exact state).  The sampled
 kernels end in the hierarchical inverse CDF shared with the slot sampler
 (``csrc/sampler.cuh``); the grouped one runs the circuit once and then,
 per QWC measurement group, that group's rotation kron layer through the
-same passes into a second buffer, and the epilogue.
+same passes into a second buffer, and the epilogue.  The folded NFT sweep
+builds each individual's BASE (the swept layer's REST applied to the
+prefix) with this engine on the first step and every ``reset_interval``
+steps; between those it shares the slot sweep's fused transition pass and
+step (``csrc/sweep.cuh``).
 
 Each wrapper takes its plain version (``*_plain``, beside it here) only
 because the tensors it was given lie on the CPU.  On CUDA tensors it
@@ -67,6 +71,7 @@ from queasars_tpu_torch.sim.slot_kernels import (
     _ptr,
     _stream,
     sampler_scratch,
+    sweep_transitions,
 )
 from queasars_tpu_torch.sim.statevector import GATE_CROT, GATE_ROT
 
@@ -477,8 +482,13 @@ def nft_layer_sweep_folded(
     :param diag_ctrl: ... ``group_active``: :func:`fold_sweep_metadata`'s
         arrays as int32 tensors on the same device
 
-    On the card the step loop only enqueues launches: nothing synchronises
-    until the caller reads the results.
+    On the card the fold engine builds each individual's BASE (REST applied
+    to the prefix) on the first step and every ``reset_interval`` steps;
+    between rebuilds the slot sweep's fused pass updates it and its nine
+    pair sums when the probed qubit changes (``csrc/sweep.cuh``).  The steps
+    that need that pass are read from the free coordinates first
+    (``slot_kernels.sweep_transitions``, one wait); then the step loop only
+    enqueues launches.
     """
     meta = (diag_ctrl, diag_tgt, slot_of_q, diag_count, group_active)
     tensors = (gate_types, angles, coords, n_free, active, prefix, table) + meta
@@ -515,18 +525,20 @@ def nft_layer_sweep_folded(
 
     out_angles = torch.empty_like(angles)
     z = scratch(pop)
-    # factors [P, 2, n, 8], phases [P, 1, D, 4], probed qubit [P], BASE
-    # planes, energy partials, pair-sum partials, pair sums [P, 9]; held
-    # here until the call has enqueued everything
+    # factors [P, 2, n, 8], phases [P, 1, D, 4], probed qubit [P], layer
+    # controls [P, n], BASE planes, pair-sum partials, pair sums [P, 9];
+    # held here until the call has enqueued everything
     work = [
         scratch(pop, 2, n_qubits, 8), scratch(pop, 1, d_slots, 4),
-        scratch(pop, dtype=torch.int32), scratch(pop, 2, dim),
-        scratch(pop, kernels.qt_energy_partials(n_qubits)),
-        scratch(pop, 9, kernels.qt_fold_pair_partials(n_qubits)), scratch(pop, 9),
+        scratch(pop, dtype=torch.int32), scratch(pop, n_qubits, dtype=torch.int32),
+        scratch(pop, 2, dim), scratch(pop, 9, kernels.qt_sweep_partials(n_qubits)),
+        scratch(pop, 9),
     ]
+    # the wait comes last, so the checks and allocations overlap earlier work
+    transitions = sweep_transitions(coords, n_free, active, n_qubits, maxiter)
     status = kernels.qt_fold_nft_sweep(
         out_angles.data_ptr(), z.data_ptr(), *(t.data_ptr() for t in work),
-        *(t.data_ptr() for t in tensors),
+        transitions.ctypes.data, *(t.data_ptr() for t in tensors),
         pop, n_qubits, k_max, d_slots, maxiter, reset_interval, _stream(),
     )
     lib.check(status, "qt_fold_nft_sweep")

@@ -27,7 +27,14 @@ traffic (16 MB per pass and individual at n=20) and the 28 separately
 rounded operations per amplitude pair and active slot bound it about
 equally.  The energy and probability passes read (and write) each plane
 once more; the sampled kernel runs the same circuit, then a hierarchical
-inverse CDF that reads the planes once more (bytes-bound as well).
+inverse CDF that reads the planes once more (bytes-bound as well).  The NFT
+sweep keeps one BASE state per individual (the swept layer without the
+probed qubit's gate, applied to the prefix): the engine builds it on the
+first step and every ``reset_interval`` steps, and between those one fused
+pass per change of probed qubit redoes and undoes a gate in place and writes
+the nine pair sums the 3-point update needs (``csrc/sweep.cuh``, shared
+with the folded sweep), so a sweep streams its planes about once per
+change of qubit instead of running two probe circuits per step.
 
 Each wrapper takes its plain version (``*_plain``, beside it here) only
 because the tensors it was given lie on the CPU.  On CUDA tensors it
@@ -251,6 +258,26 @@ def nft_layer_sweep_plain(
     return layer_sweep_plain(energy, angles, coords, n_free, active, maxiter, reset_interval)
 
 
+def sweep_transitions(coords, n_free, active, n_qubits, maxiter):
+    """The sweep kernels' host schedule: uint8 numpy [max(maxiter, 1)], 1 at
+    step k >= 1 where some individual the sweep moves (``active`` and
+    ``n_free > 0``) probes another qubit than at step k - 1, so its BASE
+    needs a transition pass.  Copies ``coords``' qubits, ``n_free`` and
+    ``active`` to the host (a wait when they lie on the card)."""
+    import numpy as np
+
+    flags = np.zeros(max(maxiter, 1), np.uint8)
+    if maxiter < 2:
+        return flags
+    qubits = coords.cpu().numpy()[:, :, 0].clip(0, n_qubits - 1)
+    n_free, active = n_free.cpu().numpy(), active.cpu().numpy()
+    idx = np.arange(maxiter)[None, :] % np.maximum(n_free, 1)[:, None]
+    probed = np.take_along_axis(qubits, idx, axis=1)
+    moves = (active & (n_free > 0))[:, None] & (probed[:, 1:] != probed[:, :-1])
+    flags[1:] = moves.any(axis=0)
+    return flags
+
+
 def nft_layer_sweep(
     gate_types, controls, angles, coords, n_free, active, prefix, table,
     n_qubits, maxiter, reset_interval,
@@ -266,8 +293,13 @@ def nft_layer_sweep(
     :param prefix: [P, 2, 2^n] states after the frozen prefix layers
     :param table: [2^n] diagonal energy table
 
-    On the card the step loop only enqueues launches: nothing synchronises
-    until the caller reads the results.
+    On the card the sweep keeps one BASE state per individual (the swept
+    layer without the probed qubit's gate, applied to the prefix): the slot
+    engine builds it on the first step and every ``reset_interval`` steps,
+    and one fused pass per change of probed qubit updates it and its nine
+    pair sums (``csrc/sweep.cuh``).  The steps that need that pass are read
+    from the free coordinates first (:func:`sweep_transitions`, one wait);
+    then the step loop only enqueues launches.
     """
     tensors = (gate_types, controls, angles, coords, n_free, active, prefix, table)
     if not _on_cuda(*tensors):
@@ -293,18 +325,21 @@ def nft_layer_sweep(
     device = angles.device
     out_angles = torch.empty_like(angles)
     z = torch.empty(pop, dtype=torch.float32, device=device)
-    probe = torch.empty((2 * pop, n_qubits, 3), dtype=torch.float32, device=device)
-    work = torch.empty((2 * pop, 2, dim), dtype=torch.float32, device=device)
-    partial = torch.empty(
-        (2 * pop, kernels.qt_energy_partials(n_qubits)), dtype=torch.float32, device=device
-    )
-    z13 = torch.empty(2 * pop, dtype=torch.float32, device=device)
+    # BASE planes, pair-sum partials, pair sums, probed qubit, REST gate types
+    work = [
+        torch.empty((pop, 2, dim), dtype=torch.float32, device=device),
+        torch.empty((pop, 9, kernels.qt_sweep_partials(n_qubits)), dtype=torch.float32,
+                    device=device),
+        torch.empty((pop, 9), dtype=torch.float32, device=device),
+        torch.empty(pop, dtype=torch.int32, device=device),
+        torch.empty((pop, n_qubits), dtype=torch.int32, device=device),
+    ]
+    # the wait comes last, so the checks and allocations overlap earlier work
+    transitions = sweep_transitions(coords, n_free, active, n_qubits, maxiter)
     status = kernels.qt_nft_layer_sweep(
-        out_angles.data_ptr(), z.data_ptr(), probe.data_ptr(), work.data_ptr(),
-        partial.data_ptr(), z13.data_ptr(), gate_types.data_ptr(), controls.data_ptr(),
-        angles.data_ptr(), coords.data_ptr(), n_free.data_ptr(), active.data_ptr(),
-        prefix.data_ptr(), table.data_ptr(), pop, n_qubits, k_max, maxiter, reset_interval,
-        _stream(),
+        out_angles.data_ptr(), z.data_ptr(), *(t.data_ptr() for t in work),
+        transitions.ctypes.data, *(t.data_ptr() for t in tensors),
+        pop, n_qubits, k_max, maxiter, reset_interval, _stream(),
     )
     lib.check(status, "qt_nft_layer_sweep")
     launch_counts["nft_layer_sweep"] += 1

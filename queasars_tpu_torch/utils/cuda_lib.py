@@ -46,12 +46,12 @@ SIGNATURES = {
     "qt_population_states": [_P] * 6 + [_I, _I, _I, _P],
     "qt_energies_exact": [_P] * 9 + [_I, _I, _I, _P],
     "qt_population_probs": [_P] * 7 + [_I, _I, _I, _P],
-    "qt_nft_layer_sweep": [_P] * 14 + [_I] * 5 + [_P],
+    "qt_sweep_partials": [_I],
+    "qt_nft_layer_sweep": [_P] * 16 + [_I] * 5 + [_P],
     "qt_fold_states": [_P] * 12 + [_I] * 4 + [_P],
     "qt_fold_probs": [_P] * 13 + [_I] * 4 + [_P],
     "qt_fold_energies": [_P] * 15 + [_I] * 4 + [_P],
-    "qt_fold_pair_partials": [_I],
-    "qt_fold_nft_sweep": [_P] * 21 + [_I] * 6 + [_P],
+    "qt_fold_nft_sweep": [_P] * 22 + [_I] * 6 + [_P],
     "qt_sampler_scratch": [_I],
     "qt_sampled_shot_indices": [_P] * 9 + [_I] * 4 + [_P],
     "qt_sample_planes": [_P] * 4 + [_I] * 3 + [_P],

@@ -203,8 +203,8 @@ def test_slot_engine_tile_shapes(cuda_device, n_qubits):
     gates are all low or all high.  Whole, prefix and suffix circuits and
     none at all, from |0...0> and from per-individual start states: states
     equal to the plain version bit for bit; energies and probabilities
-    equal on a repeat; at n <= 20 the sweep (2P probe circuits from P
-    prefix states) against its plain version to 1e-5 * max|table|; at
+    equal on a repeat; at n <= 20 the sweep (BASE from the P prefix
+    states) against its plain version to 1e-5 * max|table|; at
     n = 14 and 20 the sampler's draws all equal to its plain version's."""
     from queasars_tpu_torch.interop import genome_tensors_from_numpy
     from queasars_tpu_torch.optim.prefix import prefix_mask
@@ -418,6 +418,161 @@ def test_fold_engine_tile_shapes(cuda_device, n_qubits):
         _, z = fk.nft_layer_sweep_folded(*args)
         _, z_plain = fk.nft_layer_sweep_folded_plain(*args)
         torch.testing.assert_close(z, z_plain, atol=1e-5 * 7.0, rtol=0)
+
+
+def _swept_layer_args(gt, ctrl, ang, mask, layer, n, initial):
+    """Both sweeps' arguments for layer ``layer`` of every individual from
+    the states of the layers before it (started at ``initial``): the layer
+    slices (a masked layer swept as gateless), free coordinates three per
+    gated qubit, individual 1 inactive; returns (slot args, fold args,
+    prefix, energies at given layer angles)."""
+    from queasars_tpu_torch.sim import fold_kernels as fk
+
+    device, pop = gt.device, gt.shape[0]
+    before = torch.zeros_like(mask)
+    before[:, :layer] = mask[:, :layer]
+    prefix = sk.population_states(gt, ctrl, ang, before, n, initial)
+    g1 = torch.where(mask[:, layer, None], gt[:, layer], torch.zeros_like(gt[:, layer]))
+    g1 = g1.contiguous()
+    c1, a1 = ctrl[:, layer].contiguous(), ang[:, layer].contiguous()
+    coords = torch.zeros((pop, 3 * n, 2), dtype=torch.int32)
+    n_free = torch.zeros(pop, dtype=torch.int32)
+    for p, types in enumerate(g1.cpu().tolist()):
+        flat = [(q, a) for q, t in enumerate(types) if t in (1, 3) for a in range(3)]
+        if flat:
+            coords[p, : len(flat)] = torch.tensor(flat, dtype=torch.int32)
+        n_free[p] = len(flat)
+    coords, n_free = coords.to(device), n_free.to(device)
+    active = n_free > 0
+    active[1] = False
+    meta = [torch.as_tensor(m, device=device) for m in fk.fold_sweep_metadata(
+        g1.cpu().numpy(), c1.cpu().numpy(), n)]
+    one = torch.ones((pop, 1), dtype=torch.bool, device=device)
+
+    def energies(layer_angles, table):
+        return sk.energies_exact_plain(g1[:, None], c1[:, None], layer_angles[:, None], one,
+                                       table, n, prefix)
+
+    slot = (g1, c1, a1, coords, n_free, active, prefix)
+    fold = (g1, a1, coords, n_free, active, prefix)
+    return slot, fold, meta, energies
+
+
+def _check_sweeps(slot, fold, meta, energies, table, n, maxiter, reset):
+    """Rows 3 and 8 against their plain versions through plain energies, the
+    recycled z against the energies at its angles, the inactive individual
+    unmoved, equal bits on a repeat."""
+    from queasars_tpu_torch.sim import fold_kernels as fk
+
+    tol = 1e-5 * float(table.abs().max())
+    runs = {
+        "slot": (lambda: sk.nft_layer_sweep(*slot, table, n, maxiter, reset),
+                 lambda: sk.nft_layer_sweep_plain(*slot, table, n, maxiter, reset)),
+        "fold": (lambda: fk.nft_layer_sweep_folded(*fold, table, *meta, n, maxiter, reset),
+                 lambda: fk.nft_layer_sweep_folded_plain(*fold, table, *meta, n, maxiter, reset)),
+    }
+    for name, (kernel, plain) in runs.items():
+        a_k, z_k = kernel()
+        a_p, _ = plain()
+        e_k = energies(a_k, table)
+        torch.testing.assert_close(z_k, e_k, atol=tol, rtol=0, msg=f"{name}: recycled z")
+        torch.testing.assert_close(e_k, energies(a_p, table), atol=tol, rtol=0, msg=name)
+        assert torch.equal(a_k[1], slot[2][1]), f"{name}: the inactive individual moved"
+        a_again, z_again = kernel()
+        assert torch.equal(a_k, a_again) and torch.equal(z_k, z_again), f"{name}: repeat"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits", [9, 13, 14, 20])
+def test_sweeps_match_plain_versions_on_every_control_class(cuda_device, n_qubits):
+    """Rows 3 and 8 on every layer of ``slot_engine_genome`` (a CU3 in every
+    control class: control among a pass's lane bits, its register bits or
+    its unit bits, and every tile region of the engines' rebuilds, above
+    and below the target), from per-individual start states, maxiter 13
+    with reset_interval 5 (rebuilds at 0, 5 and 10, transitions between):
+    energies at the returned angles to 1e-5 * max|table| of the plain
+    versions', the recycled z likewise of the energies at its angles, the
+    inactive individual unmoved and equal bits on a repeat."""
+    from queasars_tpu_torch.interop import genome_tensors_from_numpy
+
+    n = n_qubits
+    genome, _ = slot_engine_genome(n, seed=n + 100)
+    gt, ctrl, ang, mask = genome_tensors_from_numpy(*genome, device=cuda_device)
+    rng = np.random.default_rng(n)
+    initial = rng.normal(size=(gt.shape[0], 2, 1 << n)).astype(np.float32)
+    initial /= np.sqrt((initial**2).sum(axis=(1, 2), keepdims=True))
+    initial = torch.from_numpy(initial).to(cuda_device)
+    table = torch.from_numpy((rng.normal(size=1 << n) * 30).astype(np.float32)).to(cuda_device)
+    for layer in range(gt.shape[1]):
+        slot, fold, meta, energies = _swept_layer_args(gt, ctrl, ang, mask, layer, n, initial)
+        _check_sweeps(slot, fold, meta, energies, table, n, 13, 5)
+
+
+@pytest.mark.cuda
+def test_sweeps_hold_the_drift_over_three_rebuild_intervals(cuda_device):
+    """Rows 3 and 8 at n=20, maxiter 96 and reset_interval 32: BASE goes
+    through 31 steps of transitions (undo and redo in float32) before each
+    rebuild; energies and the recycled z as in the other sweep tests."""
+    from queasars_tpu_torch.interop import genome_tensors_from_numpy
+
+    n = 20
+    genome, _ = slot_engine_genome(n, seed=7)
+    gt, ctrl, ang, mask = genome_tensors_from_numpy(*genome, device=cuda_device)
+    rng = np.random.default_rng(n)
+    table = torch.from_numpy((rng.normal(size=1 << n) * 30).astype(np.float32)).to(cuda_device)
+    layer = int(((gt == 1) | (gt == 3)).sum(dim=(0, 2)).argmax())
+    slot, fold, meta, energies = _swept_layer_args(gt, ctrl, ang, mask, layer, n, None)
+    _check_sweeps(slot, fold, meta, energies, table, n, 96, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits,slot_passes,fold_passes", [(9, 1, 1), (20, 2, 4)])
+def test_sweep_passes_follow_the_design_rule(cuda_device, n_qubits, slot_passes, fold_passes):
+    """The profiler's count of passes over the state per sweep: on each
+    rebuild step (k % reset_interval == 0) the route's engine builds BASE
+    (the slot engine: one launch at n <= 13, two at n=20; the fold engine:
+    one at n <= 13, two per kron layer above) and one sweep_pass sums it;
+    then one sweep_pass per step with a transition and none on any other
+    step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from queasars_tpu_torch.interop import genome_tensors_from_numpy
+    from queasars_tpu_torch.sim import fold_kernels as fk
+
+    n, maxiter, reset = n_qubits, 30, 8
+    genome, _ = slot_engine_genome(n, seed=3)
+    gt, ctrl, ang, mask = genome_tensors_from_numpy(*genome, device=cuda_device)
+    table = torch.linspace(-5.0, 7.0, 1 << n, device=cuda_device).contiguous()
+    slot, fold, meta, _ = _swept_layer_args(gt, ctrl, ang, mask, 0, n, None)
+    flags = sk.sweep_transitions(*slot[3:6], n, maxiter)
+    rebuilds = len(range(0, maxiter, reset))
+    transitions = sum(int(flags[k]) for k in range(maxiter) if k % reset)
+    assert transitions > 0
+    runs = {
+        ("slot_pass", slot_passes): lambda: sk.nft_layer_sweep(*slot, table, n, maxiter, reset),
+        ("fold_pass", fold_passes): lambda: fk.nft_layer_sweep_folded(
+            *fold, table, *meta, n, maxiter, reset),
+    }
+    for (engine, per_rebuild), run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        # the profiler has been seen to drop kernel records on this card: a
+        # trace is used only when it holds one record per cudaLaunchKernel
+        # call (every kernel in the window is the sweep's)
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            counts = {e.key: e.count for e in prof.key_averages()}
+            launched = counts.get("cudaLaunchKernel", 0)
+            recorded = sum(c for k, c in counts.items() if "(anonymous namespace)::" in k)
+            if launched > 0 and recorded == launched:
+                break
+        assert launched > 0 and recorded == launched, (engine, launched, recorded)
+        engine_launches = sum(c for k, c in counts.items() if engine in k)
+        sweep_launches = sum(c for k, c in counts.items() if "sweep_pass" in k)
+        assert engine_launches == per_rebuild * rebuilds, (engine, counts)
+        assert sweep_launches == rebuilds + transitions, (engine, counts)
 
 
 @pytest.mark.cuda

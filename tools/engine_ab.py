@@ -30,9 +30,10 @@ n=20, P=16, L=6 on config 4's 20-qubit JSSP table (``chip_smoke.Workload``):
 The turns run in the order A B B A (A is this checkout, B the other),
 ten timed calls per row and turn (three for a sweep).  Where a checkout's
 ``chip_smoke.py`` can count them (``engine_bytes`` for the fold engine,
-``slot_engine_bytes`` for the slot engine) the turn also reports each
-call's engine bytes (the circuit passes' plane traffic by the design's
-rule, without the epilogue's) and those bytes over the call's time.
+``slot_engine_bytes`` for the slot engine, ``sweep_engine_bytes`` for the
+two sweeps) the turn also reports each call's engine bytes (the passes'
+traffic by the design's rule, without an epilogue's) and those bytes over
+the call's time.
 Prints the card's name and power limit and one line per row with both
 checkouts' times (ms, mean over their turns, and each turn) and the ratio;
 ``--json`` writes the whole record to PATH.
@@ -125,6 +126,11 @@ def worker(root: str) -> dict:
             return lambda: cs.slot_engine_bytes(gate_types, mask, n)
         return None
 
+    def swept(route):
+        if hasattr(cs, "sweep_engine_bytes"):
+            return lambda: cs.sweep_engine_bytes(w.sweep_plan, route)
+        return None
+
     calls = {  # name: (call, its engine bytes or None, timed calls)
         "row 1 energies from prefix": (
             lambda: sk.energies_exact(gt, ctrl, ang, w.smask, table, n, prefix),
@@ -136,7 +142,7 @@ def worker(root: str) -> dict:
             slot(bgt, bmask), REPS),
         "row 2 states (prefix circuits)": (
             lambda: sk.population_states(gt, ctrl, ang, w.pmask, n), slot(gt, w.pmask), REPS),
-        "row 3 sweep": (lambda: sk.nft_layer_sweep(*slot_sweep), None, 3),
+        "row 3 sweep": (lambda: sk.nft_layer_sweep(*slot_sweep), swept("slot"), 3),
         "row 4 probabilities": (lambda: sk.population_probs(gt, ctrl, ang, w.mask, n),
                                 slot(gt, w.mask), REPS),
         "row 5 sampled from |0>": (
@@ -155,7 +161,7 @@ def worker(root: str) -> dict:
             lambda: fk.energies_exact_folded(bench, bench_table, n), fold(bench), REPS),
         "row 7 states (prefix circuits)": (lambda: fk.population_states_folded(pre, n), fold(pre),
                                            REPS),
-        "row 8 sweep": (lambda: fk.nft_layer_sweep_folded(*sweep), None, 3),
+        "row 8 sweep": (lambda: fk.nft_layer_sweep_folded(*sweep), swept("fold"), 3),
         "row 9 probabilities": (lambda: fk.population_probs_folded(full, n), fold(full), REPS),
         "row 10 sampled from |0>": (lambda: fk.sampled_shot_indices_folded(full, frac, n),
                                     fold(full), REPS),
