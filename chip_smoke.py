@@ -46,7 +46,9 @@ with elapsed seconds:
    repeats; its launches are the two kernels' counts.  Then at the bench
    shape and at the slot phase's (P=16, L=6, JSSP table): both kernels
    against their plain versions, equal bits on a repeat and (slot phase
-   shape) to the slot kernels, times in turns with the slot kernels;
+   shape) to the slot kernels, times in turns with the slot kernels, and
+   their design bytes (the slot engine's rule, counted from the lists) and
+   GB/s beside a bound of those bytes;
 8. solve, slot route (``QUEASARS_MXU=0``): the 20-qubit 3x3 JSSP instance
    under the repository's config 4 (population 16, NFT maxiter 30, 4
    generations, ``pack_min_layers=6``, seed 0) through
@@ -406,9 +408,20 @@ def slot_engine_bytes(gate_types, layer_mask, n_qubits) -> int:
     return int(active.any(dim=2).sum()) * 2 * 2 * (8 << n_qubits)
 
 
+def compact_engine_bytes(compact, n_qubits) -> int:
+    """Plane traffic of the compacted-gate kernels' circuit by the slot
+    engine's rule (14 <= n <= 22), counted from the lists themselves: two
+    passes per individual and layer whose segment holds a gate, each
+    reading and writing the [2, 2^n] float32 planes.  Equal to
+    ``slot_engine_bytes`` on the genome the lists were compacted from."""
+    b = compact.boundaries
+    return int((b[:, 2::2] > b[:, :-1:2]).sum()) * 2 * 2 * (8 << n_qubits)
+
+
 def engine_rate(name, moved, ms) -> str:
     """An engine's bytes for one call (``engine_bytes``,
-    ``slot_engine_bytes`` or ``sweep_engine_bytes``) and those bytes over
+    ``slot_engine_bytes``, ``compact_engine_bytes`` or
+    ``sweep_engine_bytes``) and those bytes over
     the call's measured time."""
     rate = moved / ms * 1e3
     return (f"{name}: engine {moved / 1e9:.4f} GB per call in {ms:.3f} ms, {rate / 1e9:.1f} GB/s "
@@ -1115,7 +1128,9 @@ def compact_bounds(genome, compact, n_qubits) -> dict:
     """The least time of each compacted-gate function: every active gate's
     qubit, control, angle index and angle triple and every count read once,
     the table read once and the output written once, against the active
-    gates' FLOPs (which are rows 1's and 4's at this shape)."""
+    gates' FLOPs (which are rows 1's and 4's at this shape); and under
+    ``design``, the circuit's bytes by the engine's rule
+    (``compact_engine_bytes``) over 3.35 TB/s."""
     gt, _, _, mask = genome
     pop, dim = gt.shape[0], 1 << n_qubits
     active = int(compact.boundaries[:, -1].sum())
@@ -1125,6 +1140,7 @@ def compact_bounds(genome, compact, n_qubits) -> dict:
         "compact_energies_exact": bound(moved + 4 * dim + 4 * pop,
                                         flops + FLOPS_PER_AMPLITUDE_ENERGY * dim * pop),
         "compact_probs": bound(moved + 4 * dim * pop, flops + FLOPS_PER_AMPLITUDE_PROB * dim * pop),
+        "design": (compact_engine_bytes(compact, n_qubits) / PEAK_BYTES_PER_S * 1e3, "bytes"),
     }
 
 
@@ -1199,14 +1215,20 @@ def phase_compact_kernels(w):
                 lambda: ck.compact_probs_plain(compact, ang)),
         }
         bounds = compact_bounds(genome, compact, n)
+        moved = compact_engine_bytes(compact, n)
+        require(moved == slot_engine_bytes(gt, mask, n),
+                f"compact design bytes {moved} differ from the slot engine's ({label})")
         for name, (kernel, slot, plain) in kernels.items():
             first, slot_a, slot_b, last = (time_ms(fn, 5) for fn in (kernel, slot, slot, kernel))
             entry = dict(ms=(first + last) / 2, slot_ms=(slot_a + slot_b) / 2,
-                         plain_ms=time_ms(plain, 1), bound=bounds[name])
+                         plain_ms=time_ms(plain, 1), bound=bounds[name],
+                         design_bound=bounds["design"])
             say(f"  {name} {label}: {entry['ms']:.3f} ms ({first:.3f}, {last:.3f}); slot kernel "
                 f"{entry['slot_ms']:.3f} ms ({slot_a:.3f}, {slot_b:.3f}); ratio "
                 f"{entry['ms'] / entry['slot_ms']:.4f}; plain {entry['plain_ms']:.3f} ms; bound "
-                f"{entry['bound'][0]:.4f} ms by {entry['bound'][1]}")
+                f"{entry['bound'][0]:.4f} ms by {entry['bound'][1]}, of the design's bytes "
+                f"{entry['design_bound'][0]:.4f} ms")
+            say("  " + engine_rate(f"{name} {label}", moved, entry["ms"]))
             if against_slot:
                 records[name].update(entry)
     say(f"phase compact kernels: {time.perf_counter() - t0:.2f} s")

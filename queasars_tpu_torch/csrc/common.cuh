@@ -1,6 +1,6 @@
-// Pieces shared by the slot, fold and compacted-gate kernels: state
-// initialisation, the U3 entries and pair update, the deterministic energy
-// reduction and the probability pass.
+// Pieces shared by the slot, fold and compacted-gate kernels: the gate
+// codes, the U3 entries and pair update, the deterministic energy reduction
+// and the probability pass.
 //
 // A state is two float32 planes [2, 2^n] (re, im); a population of P states
 // is [P, 2, 2^n].  The energy reduction sums (re^2 + im^2) * table in a fixed
@@ -13,17 +13,11 @@
 
 namespace {
 
+constexpr int kGateRot = 1;   // U3
+constexpr int kGateCrot = 3;  // CU3
 constexpr int kPairThreads = 256;
 constexpr int kReduceThreads = 256;
 constexpr long long kReduceChunk = 4096;  // elements per first-pass block
-
-__global__ void init_zero_state(float* state, long long dim) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= dim) return;
-  float* s = state + (long long)blockIdx.y * 2 * dim;
-  s[i] = i == 0 ? 1.0f : 0.0f;
-  s[dim + i] = 0.0f;
-}
 
 // ((a0 b0 + a1 b1) + a2 b2) + a3 b3 with every product and sum rounded on its
 // own (no FMA contraction): the plain version's order of operations
@@ -50,23 +44,14 @@ __device__ __forceinline__ U3 u3_entries(float theta, float phi, float lam) {
 }
 
 // U3 u on one amplitude pair (r0 + i m0, r1 + i m1), whose second index has
-// the target bit set.  The slot engine, the compacted-gate pass and the plain
-// version (sim/statevector.py::apply_u3_pairs) all round alike.
+// the target bit set.  The engines, the sweep passes and the plain version
+// (sim/statevector.py::apply_u3_pairs) all round alike.
 __device__ __forceinline__ void u3_apply(const U3& u, float& r0, float& m0, float& r1, float& m1) {
   const float a = r0, b = m0, c = r1, d = m1;
   r0 = sum4(u.u00r, a, -u.u00i, b, u.u01r, c, -u.u01i, d);
   m0 = sum4(u.u00r, b, u.u00i, a, u.u01r, d, u.u01i, c);
   r1 = sum4(u.u11r, c, -u.u11i, d, u.u10r, a, -u.u10i, b);
   m1 = sum4(u.u11r, d, u.u11i, c, u.u10r, b, u.u10i, a);
-}
-
-// U3(theta, phi, lam) on the amplitude pair (i0, i1) of the planes re, im,
-// i1 = i0 | 2^q (the compacted-gate pass).
-__device__ __forceinline__ void u3_pair_update(float* re, float* im, long long i0, long long i1,
-                                               float theta, float phi, float lam) {
-  float r0 = re[i0], m0 = im[i0], r1 = re[i1], m1 = im[i1];
-  u3_apply(u3_entries(theta, phi, lam), r0, m0, r1, m1);
-  re[i0] = r0, im[i0] = m0, re[i1] = r1, im[i1] = m1;
 }
 
 __device__ float block_sum(float value, float* shared) {
@@ -118,18 +103,6 @@ unsigned int blocks_for(long long count, int threads) {
 }
 
 long long reduce_chunk(long long count) { return count < kReduceChunk ? count : kReduceChunk; }
-
-// State p starts from |0...0>, or from initial[p] when initial is given.
-cudaError_t init_states(float* state, const float* initial, int pop, long long dim,
-                        cudaStream_t stream) {
-  if (initial != nullptr) {
-    return cudaMemcpyAsync(state, initial, (size_t)pop * 2 * dim * sizeof(float),
-                           cudaMemcpyDeviceToDevice, stream);
-  }
-  init_zero_state<<<dim3(blocks_for(dim, kPairThreads), pop), kPairThreads, 0, stream>>>(state,
-                                                                                         dim);
-  return cudaGetLastError();
-}
 
 void reduce_energies(const float* state, const float* table, float* partial, float* out,
                      int pop, long long dim, cudaStream_t stream) {

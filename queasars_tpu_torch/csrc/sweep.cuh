@@ -49,8 +49,6 @@
 
 namespace {
 
-constexpr int kGateRot = 1;
-constexpr int kGateCrot = 3;
 constexpr float kHalfPi = 1.57079632679489662f;
 constexpr float kPi = 3.14159265358979324f;
 constexpr int kPairSums = 9;

@@ -17,18 +17,20 @@ wrapper                             replaces (queasars_tpu/sim/
 The list is sorted by (layer, axis group, qubit), the axis groups being
 the TPU layout's lane qubits (q < 7) and row qubits (q >= 7): that is
 ascending qubit order within a layer, the order in which the slot kernels
-apply a layer.  The gate arithmetic (``csrc/common.cuh::u3_pair_update``)
-and the energy reduction are the slot kernels' own, so both kernels give
-rows 1's and 4's bits exactly on the same genome.
+apply a layer.
 
-The kernels live in ``queasars_tpu_torch/csrc/compact_kernels.cu``: one
-launch per compacted index g over the whole population, a thread per
-amplitude pair, each block reading its individual's g-th gate and angle
-triple (through ``angle_index``, from the live ``[P, L, n, 3]`` angles:
-no gathered copy) and returning at once past its individual's count.
-Bound like the slot kernels: each active gate streams the planes through
-device memory once (32 bytes per pair).  The host knows the largest count
-(:attr:`CompactGates.max_count`), so no launch reads the card back.
+The kernels live in ``queasars_tpu_torch/csrc/compact_kernels.cu``.  The
+list feeds the slot kernels' circuit engine (``csrc/slot_engine.cuh``)
+through a gate source of its own: the same passes over 2^13-amplitude
+shared-memory tiles (one launch for the whole circuit at n <= 13, one per
+layer and window above, two windows at n <= 22), each pass reading only
+its individual's layer segments, the angle triples straight from the live
+``[P, L, n, 3]`` angles through ``angle_index`` (no gathered copy), and
+never an entry past the individual's count.  The pair arithmetic
+(``csrc/common.cuh::u3_apply``) and the energy reduction are the slot
+kernels' own, so both kernels give rows 1's and 4's bits exactly on the
+same genome.  Bound like the slot kernels: two read+write passes of the
+planes per layer with a gate (16 MB per pass and individual at n=20).
 
 Each wrapper takes its plain version (``*_plain``, beside it here) only
 because the tensors it was given lie on the CPU.  On CUDA tensors it
@@ -43,7 +45,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from queasars_tpu_torch.sim.slot_kernels import _expect, _library, _on_cuda, _stream
+from queasars_tpu_torch.sim.slot_kernels import (
+    ENGINE_MAX_QUBITS,
+    _expect,
+    _library,
+    _on_cuda,
+    _stream,
+)
 from queasars_tpu_torch.sim.statevector import (
     GATE_CROT,
     GATE_ROT,
@@ -219,6 +227,8 @@ def _lists(compact: CompactGates) -> tuple:
 
 def _check(compact: CompactGates, angles: torch.Tensor) -> int:
     pop, g_max, n, n_layers = angles.shape[0], compact.max_gates, compact.n_qubits, compact.n_layers
+    if not 1 <= n <= ENGINE_MAX_QUBITS:
+        raise ValueError(f"the compacted-gate kernels need 1 <= n_qubits <= {ENGINE_MAX_QUBITS}")
     for name, t in zip(("qubits", "controls", "angle_index"), _lists(compact)):
         _expect(t, name, torch.int32, (pop, g_max))
     _expect(compact.boundaries, "boundaries", torch.int32, (pop, 2 * n_layers + 1))

@@ -192,3 +192,92 @@ def test_port_compact_tool_refuses_without_a_card():
     )
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr and "speedup" not in proc.stdout
+
+
+def _expand_lists(compact):
+    """Each individual's list, layer segment by layer segment, as [P, L, n]
+    slot tables: gate type (CU3 where the control is >= 0, else U3) and
+    control, -1 where no gate.  Checks on the way the contract the kernel's
+    gate source reads: segments in order, at most n gates each, lane qubits
+    (q < 7) before the row split and row qubits after it, qubits strictly
+    ascending (no (layer, qubit) twice) and angle_index == l * n + q."""
+    n, n_layers = compact.n_qubits, compact.n_layers
+    qubits, controls, index, bounds = (
+        getattr(compact, f).numpy() for f in ("qubits", "controls", "angle_index", "boundaries"))
+    pop = qubits.shape[0]
+    types = np.zeros((pop, n_layers, n), np.int32)
+    ctrls = np.full((pop, n_layers, n), -1, np.int32)
+    assert (bounds[:, 0] == 0).all() and (np.diff(bounds, axis=1) >= 0).all()
+    assert (bounds[:, -1] <= compact.max_gates).all()
+    for p in range(pop):
+        for layer in range(n_layers):
+            lo, split, hi = bounds[p, 2 * layer: 2 * layer + 3]
+            assert hi - lo <= n
+            seg = qubits[p, lo:hi]
+            assert ((seg >= 0) & (seg < n)).all() and (np.diff(seg) > 0).all()
+            assert (seg[: split - lo] < ck.LANE_BITS).all()
+            assert (seg[split - lo:] >= ck.LANE_BITS).all()
+            np.testing.assert_array_equal(index[p, lo:hi], layer * n + seg)
+            types[p, layer, seg] = np.where(controls[p, lo:hi] >= 0, 3, 1)
+            ctrls[p, layer, seg] = controls[p, lo:hi]
+    return types, ctrls
+
+
+def _contract_genome(n_qubits, seed):
+    """A packed random genome with a padded layer, individual 1's first
+    layer masked off and individual 2 without any gate."""
+    packed = _packed(n_qubits, 3, 5, seed, 4)
+    gate_types, controls, mask = packed.gate_types.copy(), packed.controls, packed.layer_mask.copy()
+    mask[1, 0] = False
+    gate_types[2] = 0
+    assert (gate_types == 3).any()
+    return gate_types, controls, mask
+
+
+def _assert_lists_hold_the_active_slots(compact, gate_types, controls, mask):
+    types, ctrls = _expand_lists(compact)
+    active = ((gate_types == 1) | (gate_types == 3)) & mask[:, :, None]
+    np.testing.assert_array_equal(types, np.where(active, gate_types, 0))
+    np.testing.assert_array_equal(ctrls, np.where(active & (gate_types == 3), controls, -1))
+
+
+@pytest.mark.parametrize("n_qubits", [3, 13, 14, 23])
+def test_lists_expand_to_the_genomes_active_slots(n_qubits):
+    gate_types, controls, mask = _contract_genome(n_qubits, n_qubits)
+    compact = ck.compact_gates(gate_types, controls, mask, n_qubits, device="cpu")
+    assert int(compact.boundaries[2, -1]) == 0
+    _assert_lists_hold_the_active_slots(compact, gate_types, controls, mask)
+
+
+def test_a_jax_made_compaction_keeps_the_list_contract():
+    n = 14
+    gate_types, controls, mask = _contract_genome(n, 3)
+    want = jax_compact.compact_gates(gate_types, controls, mask, n)
+    got = compact_gates_from_numpy(
+        want.qubits, want.controls, want.angle_index, want.boundaries, want.n_qubits,
+        want.n_layers, device="cpu")
+    _assert_lists_hold_the_active_slots(got, gate_types, controls, mask)
+
+
+def test_design_bytes_counted_from_the_lists_equal_the_slot_engines():
+    """chip_smoke.compact_engine_bytes (from the boundaries) against
+    chip_smoke.slot_engine_bytes (from the genome) at bench.py's shape and
+    on a genome with a masked layer and a gateless individual."""
+    import chip_smoke
+
+    population = EVQEPopulation.random_population(20, 5, 32, True, random_seed=0)
+    packed = PackedPopulation.pack(list(population.individuals), min_layers=5)
+    for gate_types, controls, mask in ((packed.gate_types, packed.controls, packed.layer_mask),
+                                       _contract_genome(20, 5)):
+        compact = ck.compact_gates(gate_types, controls, mask, 20, device="cpu")
+        want = chip_smoke.slot_engine_bytes(
+            torch.as_tensor(gate_types), torch.as_tensor(mask), 20)
+        assert chip_smoke.compact_engine_bytes(compact, 20) == want > 0
+
+
+def test_the_kernels_refuse_widths_past_the_engines():
+    n, pop = 32, 2
+    compact = ck.CompactGates(*(torch.zeros((pop, 16), dtype=torch.int32) for _ in range(3)),
+                              torch.zeros((pop, 3), dtype=torch.int32), n, 1, 0)
+    with pytest.raises(ValueError, match="n_qubits <= 31"):
+        ck._check(compact, torch.zeros((pop, 1, n, 3)))

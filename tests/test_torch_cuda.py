@@ -534,8 +534,6 @@ def test_sweep_passes_follow_the_design_rule(cuda_device, n_qubits, slot_passes,
     one at n <= 13, two per kron layer above) and one sweep_pass sums it;
     then one sweep_pass per step with a transition and none on any other
     step."""
-    from torch.profiler import ProfilerActivity, profile
-
     from queasars_tpu_torch.interop import genome_tensors_from_numpy
     from queasars_tpu_torch.sim import fold_kernels as fk
 
@@ -554,20 +552,8 @@ def test_sweep_passes_follow_the_design_rule(cuda_device, n_qubits, slot_passes,
             *fold, table, *meta, n, maxiter, reset),
     }
     for (engine, per_rebuild), run in runs.items():
-        run()
-        torch.cuda.synchronize()
-        # the profiler has been seen to drop kernel records on this card: a
-        # trace is used only when it holds one record per cudaLaunchKernel
-        # call (every kernel in the window is the sweep's)
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                run()
-                torch.cuda.synchronize()
-            counts = {e.key: e.count for e in prof.key_averages()}
-            launched = counts.get("cudaLaunchKernel", 0)
-            recorded = sum(c for k, c in counts.items() if "(anonymous namespace)::" in k)
-            if launched > 0 and recorded == launched:
-                break
+        counts = _kernel_counts(run)
+        launched, recorded = counts.get("cudaLaunchKernel", 0), _recorded(counts)
         assert launched > 0 and recorded == launched, (engine, launched, recorded)
         engine_launches = sum(c for k, c in counts.items() if engine in k)
         sweep_launches = sum(c for k, c in counts.items() if "sweep_pass" in k)
@@ -763,30 +749,141 @@ def test_grouped_kernel_matches_plain_version_and_per_group_route(cuda_device, n
     assert fk.launch_counts["grouped_shot_indices_folded"] == calls
 
 
+#: every tile shape of the slot circuit engine (test_slot_engine_tile_shapes)
+ENGINE_TILE_SHAPES = [3, 7, 12, 13, 14, 15, 18, 20, 21, 22]
+
+
+def _compact_genomes(n_qubits, device):
+    """Rows 12-13's genomes: a random packed one (a masked layer) and
+    ``slot_engine_genome`` (a CU3 in every control class, a masked layer, an
+    individual with no gate, all-low and all-high layers)."""
+    from queasars_tpu_torch.interop import genome_tensors_from_numpy
+
+    engine, _ = slot_engine_genome(n_qubits, seed=n_qubits)
+    return (_genomes(n_qubits, 3, 4, n_qubits, device),
+            genome_tensors_from_numpy(*engine, device=device))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_qubits", [14, 20, 21])
+@pytest.mark.parametrize("n_qubits", ENGINE_TILE_SHAPES)
 def test_compact_kernels_match_plain_versions_and_the_slot_kernels(cuda_device, n_qubits):
-    """Rows 12-13 against their plain versions, and bit for bit equal to the
-    slot kernels (rows 1 and 4) on the same genome and on a repeat."""
+    """Rows 12-13 at every tile shape of the engine they share with rows
+    1-5: against their plain versions, and bit for bit equal to the slot
+    kernels (rows 1 and 4) on the same genome and on a repeat."""
     from queasars_tpu_torch.sim import compact_kernels as ck
 
-    gt, ctrl, ang, mask = _genomes(n_qubits, 3, 4, n_qubits, cuda_device)
     gen = torch.Generator(device="cpu").manual_seed(n_qubits)
     table = (torch.randn(1 << n_qubits, generator=gen) * 30).to(cuda_device)
-    compact = ck.compact_gates(gt, ctrl, mask, n_qubits, device=cuda_device)
-    assert compact.qubits.device.type == "cuda"
-    ck.reset_launch_counts()
-    probs = ck.compact_probs(compact, ang)
-    energies = ck.compact_energies_exact(compact, ang, table)
+    for gt, ctrl, ang, mask in _compact_genomes(n_qubits, cuda_device):
+        compact = ck.compact_gates(gt, ctrl, mask, n_qubits, device=cuda_device)
+        assert compact.qubits.device.type == "cuda"
+        ck.reset_launch_counts()
+        probs = ck.compact_probs(compact, ang)
+        energies = ck.compact_energies_exact(compact, ang, table)
+        torch.cuda.synchronize()
+        assert ck.launch_counts == {"compact_energies_exact": 1, "compact_probs": 1}
+        plain_probs = ck.compact_probs_plain(compact, ang)
+        # 1e-5 of the largest probability: the mean one is 2^-n
+        torch.testing.assert_close(probs, plain_probs, atol=1e-5 * float(plain_probs.max()),
+                                   rtol=0)
+        tol = 1e-5 * float(table.abs().max())
+        torch.testing.assert_close(
+            energies, ck.compact_energies_exact_plain(compact, ang, table), atol=tol, rtol=0)
+        assert torch.equal(probs, sk.population_probs(gt, ctrl, ang, mask, n_qubits))
+        assert torch.equal(energies, sk.energies_exact(gt, ctrl, ang, mask, table, n_qubits))
+        assert torch.equal(probs, ck.compact_probs(compact, ang))
+        assert torch.equal(energies, ck.compact_energies_exact(compact, ang, table))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits", [13, 20])
+def test_compact_kernels_never_read_the_padding(cuda_device, n_qubits):
+    """Entries past each individual's count, poisoned two ways -- made to
+    look like real gates (an in-range qubit and control, the angle triple of
+    the individual's first gate), and out of range (qubit, control and angle
+    index past their ends) -- leave rows 12-13's bits unchanged."""
+    from queasars_tpu_torch.sim import compact_kernels as ck
+
+    n = n_qubits
+    table = torch.linspace(-5.0, 7.0, 1 << n, device=cuda_device)
+    for gt, ctrl, ang, mask in _compact_genomes(n, cuda_device):
+        compact = ck.compact_gates(gt, ctrl, mask, n, bucket=32, device=cuda_device)
+        counts = compact.boundaries[:, -1]
+        pad = torch.arange(compact.max_gates, device=cuda_device)[None, :] >= counts[:, None]
+        assert bool(pad.any())
+        probs = ck.compact_probs(compact, ang)
+        energies = ck.compact_energies_exact(compact, ang, table)
+        first = compact.angle_index[:, :1]
+        for qubit, control, index in ((3, 5, first), (n + 3, n + 5, 1 << 30)):
+            poisoned = ck.CompactGates(
+                torch.where(pad, qubit, compact.qubits), torch.where(pad, control, compact.controls),
+                torch.where(pad, index, compact.angle_index), compact.boundaries, n,
+                compact.n_layers, compact.max_count)
+            assert torch.equal(ck.compact_probs(poisoned, ang), probs)
+            assert torch.equal(ck.compact_energies_exact(poisoned, ang, table), energies)
+
+
+def _kernel_counts(run):
+    """Counts by name over one call of ``run``, from the profiler:
+    ``cudaLaunchKernel`` (every launch, from the runtime API) and one entry
+    per kernel name (its records).  The profiler has been seen to drop
+    kernel records on this card, several traces in a row: the trace is
+    taken up to three times, and the first complete one (one record per
+    launch; every kernel in the window is the port's) is returned, else the
+    last."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
     torch.cuda.synchronize()
-    assert ck.launch_counts == {"compact_energies_exact": 1, "compact_probs": 1}
-    plain_probs = ck.compact_probs_plain(compact, ang)
-    # 1e-5 of the largest probability: the mean one is 2^-n
-    torch.testing.assert_close(probs, plain_probs, atol=1e-5 * float(plain_probs.max()), rtol=0)
-    tol = 1e-5 * float(table.abs().max())
-    torch.testing.assert_close(
-        energies, ck.compact_energies_exact_plain(compact, ang, table), atol=tol, rtol=0)
-    assert torch.equal(probs, sk.population_probs(gt, ctrl, ang, mask, n_qubits))
-    assert torch.equal(energies, sk.energies_exact(gt, ctrl, ang, mask, table, n_qubits))
-    assert torch.equal(probs, ck.compact_probs(compact, ang))
-    assert torch.equal(energies, ck.compact_energies_exact(compact, ang, table))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        counts = {e.key: e.count for e in prof.key_averages()}
+        if 0 < counts.get("cudaLaunchKernel", 0) == _recorded(counts):
+            break
+    return counts
+
+
+def _recorded(counts):
+    return sum(c for k, c in counts.items() if "(anonymous namespace)::" in k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits,passes_per_layer", [(9, 0), (13, 0), (14, 2), (22, 2), (23, 3)])
+def test_compact_kernels_launch_the_engine_per_layer_and_window(cuda_device, n_qubits,
+                                                                passes_per_layer):
+    """Rows 12-13's launches per call, read from the profiler: the slot
+    engine's pass once for the whole circuit at n <= 13, once per layer and
+    window above (two windows at n <= 22, three at n = 23), then the
+    epilogue's kernels, and no other kernel (no per-gate pass)."""
+    from queasars_tpu_torch.interop import genome_tensors_from_numpy
+    from queasars_tpu_torch.sim import compact_kernels as ck
+
+    n = n_qubits
+    genome, _ = slot_engine_genome(n, seed=1)
+    gt, ctrl, ang, mask = genome_tensors_from_numpy(*genome, device=cuda_device)
+    compact = ck.compact_gates(gt, ctrl, mask, n, device=cuda_device)
+    table = torch.linspace(-5.0, 7.0, 1 << n, device=cuda_device)
+    engine = passes_per_layer * compact.n_layers or 1
+    runs = {
+        "probs": (lambda: ck.compact_probs(compact, ang), {"probabilities": 1}),
+        "energies": (lambda: ck.compact_energies_exact(compact, ang, table),
+                     {"energy_partials": 1, "energy_finish": 1}),
+    }
+    for label, (run, epilogue) in runs.items():
+        counts = _kernel_counts(run)
+        # the launches come from the runtime API, which drops nothing; the
+        # kernel records (which may lose some) name what was launched
+        assert counts["cudaLaunchKernel"] == engine + sum(epilogue.values()), (label, counts)
+        kernels = {k: c for k, c in counts.items() if "(anonymous namespace)::" in k}
+        wants = {"slot_pass<(anonymous namespace)::ListSource>": engine}
+        wants.update({f"::{name}(": want for name, want in epilogue.items()})
+        for key, count in kernels.items():
+            matched = [part for part in wants if part in key]
+            assert len(matched) == 1 and count <= wants[matched[0]], (label, kernels)
+        if _recorded(counts) == counts["cudaLaunchKernel"]:  # a complete trace
+            for part, want in wants.items():
+                assert sum(c for k, c in kernels.items() if part in k) == want, (label, kernels)
+    if n == 23:  # beyond the other tests' widths: against the slot kernel too
+        assert torch.equal(ck.compact_probs(compact, ang), sk.population_probs(gt, ctrl, ang, mask, n))

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the slot and fold kernels (rows 1-11) of two checkouts of the port
-on one CUDA card, in turns, at ``chip_smoke.py``'s shapes.
+"""Times the slot, fold and compacted-gate kernels (rows 1-13) of two
+checkouts of the port on one CUDA card, in turns, at ``chip_smoke.py``'s
+shapes.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -15,8 +16,8 @@ n=20, P=16, L=6 on config 4's 20-qubit JSSP table (``chip_smoke.Workload``):
 - row 1, the slot energies from the prefix states, from |0...0> and at
   bench.py's shape (P=32, 5 layers, 512-term table); row 2, the slot
   prefix states; row 3, the slot sweep (maxiter 30); row 4, the whole
-  circuits' probabilities; row 5, 512 sampled shots from |0...0> and from
-  the prefix states;
+  circuits' probabilities, also at bench.py's shape; row 5, 512 sampled
+  shots from |0...0> and from the prefix states;
 - row 6, the fold energies from the prefix states, from |0...0> and at
   bench.py's shape;
 - row 7, the prefix states; row 8, the folded sweep (maxiter 30);
@@ -25,12 +26,15 @@ n=20, P=16, L=6 on config 4's 20-qubit JSSP table (``chip_smoke.Workload``):
 - row 11, the grouped sampler on TFIM-20 (512 shots per group) from
   |0...0> and from the prefix states;
 - the fold states kernel on identity factors marked active with no phase:
-  in the engine every pass then only streams the planes.
+  in the engine every pass then only streams the planes;
+- rows 12 and 13, the compacted-gate energies and probabilities of the
+  whole circuits (``compact_gates`` of the genome), at both shapes.
 
 The turns run in the order A B B A (A is this checkout, B the other),
 ten timed calls per row and turn (three for a sweep).  Where a checkout's
 ``chip_smoke.py`` can count them (``engine_bytes`` for the fold engine,
-``slot_engine_bytes`` for the slot engine, ``sweep_engine_bytes`` for the
+``slot_engine_bytes`` for the slot engine, ``compact_engine_bytes`` for
+the compacted-gate kernels on that engine, ``sweep_engine_bytes`` for the
 two sweeps) the turn also reports each call's engine bytes (the passes'
 traffic by the design's rule, without an epilogue's) and those bytes over
 the call's time.
@@ -53,12 +57,13 @@ REPS = 10  # timed calls per row and turn (3 for the sweep)
 
 
 def worker(root: str) -> dict:
-    """Time rows 1-11 with the checkout at ``root``; returns ms per call
+    """Time rows 1-13 with the checkout at ``root``; returns ms per call
     (and engine bytes per call where the checkout can count them)."""
     sys.path.insert(0, root)
     import torch
 
     import chip_smoke as cs
+    from queasars_tpu_torch.sim import compact_kernels as ck
     from queasars_tpu_torch.sim import fold_kernels as fk
     from queasars_tpu_torch.sim import slot_kernels as sk
     from queasars_tpu_torch.sim.fold_pipeline import (
@@ -126,6 +131,14 @@ def worker(root: str) -> dict:
             return lambda: cs.slot_engine_bytes(gate_types, mask, n)
         return None
 
+    def listed(lists):
+        if hasattr(cs, "compact_engine_bytes"):
+            return lambda: cs.compact_engine_bytes(lists, n)
+        return None
+
+    compact = ck.compact_gates(gt, ctrl, w.mask, n, device=cs.DEVICE)
+    bench_compact = ck.compact_gates(bgt, bctrl, bmask, n, device=cs.DEVICE)
+
     def swept(route):
         if hasattr(cs, "sweep_engine_bytes"):
             return lambda: cs.sweep_engine_bytes(w.sweep_plan, route)
@@ -145,6 +158,8 @@ def worker(root: str) -> dict:
         "row 3 sweep": (lambda: sk.nft_layer_sweep(*slot_sweep), swept("slot"), 3),
         "row 4 probabilities": (lambda: sk.population_probs(gt, ctrl, ang, w.mask, n),
                                 slot(gt, w.mask), REPS),
+        "row 4 probabilities bench shape": (
+            lambda: sk.population_probs(bgt, bctrl, bang, bmask, n), slot(bgt, bmask), REPS),
         "row 5 sampled from |0>": (
             lambda: sk.sampled_shot_indices(gt, ctrl, ang, w.mask, frac, n),
             slot(gt, w.mask), REPS),
@@ -171,6 +186,14 @@ def worker(root: str) -> dict:
                                          fold(full, rotations["full"]), REPS),
         "row 11 grouped TFIM from prefix": (lambda: grouped(prefix),
                                             fold(suf, rotations["suf"]), REPS),
+        "row 12 energies from |0>": (lambda: ck.compact_energies_exact(compact, ang, table),
+                                     listed(compact), REPS),
+        "row 12 energies bench shape": (
+            lambda: ck.compact_energies_exact(bench_compact, bang, bench_table),
+            listed(bench_compact), REPS),
+        "row 13 probabilities": (lambda: ck.compact_probs(compact, ang), listed(compact), REPS),
+        "row 13 probabilities bench shape": (lambda: ck.compact_probs(bench_compact, bang),
+                                             listed(bench_compact), REPS),
     }
 
     out = {}
