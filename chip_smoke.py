@@ -69,7 +69,36 @@ with elapsed seconds:
    selection of size 2; the fold route must run on the grouped kernel and
    the slot route on the slot sampler, the eigenvalue must be negative and
    lie within 5 sqrt(sum_g w_g^2 / S_g) of the best individual's exact
-   energy (term scan), and the final distribution must hold 512 shots.
+   energy (term scan), and the final distribution must hold 512 shots;
+12. config 2 (experiments/exp_baseline_configs.py:116-126, uncut): the
+   exact-estimator 12-qubit TFIM solve, five-point NFT, population 20, 3
+   generations; its parameter search runs the per-slot loop over the
+   states kernel (row 2), and no row 1, 5, 6 or 10 kernel may launch; the
+   eigenvalue lies at or above the dense ground energy and below 0, and
+   equals the best individual's energy by the plain version to
+   1e-5 * sum|c|;
+13. config 5 (:154-169, uncut): MoG-VQE on a 6-qubit Heisenberg chain;
+   the eigenvalue at or above the ground energy - 1e-3, the Pareto front
+   printed, non-empty, mutually non-dominated and holding the generation's
+   best energy;
+14. SPSA on config 4's 20-qubit instance per route (generations 4 -> 3,
+   30 steps, 10 calibration pairs, printed as ``reduced``): rows 1 and 2
+   on the slot route and not row 6, row 6 on the fold route; the
+   eigenvalue at or above the table's minimum and equal to the best
+   individual's plain energy to 1e-5 * max|table|; then one host-stepped
+   ``BatchedSPSA.minimize`` call at n=20 with a termination checker per
+   individual (each stops at its maxfev: nfev is the checkers' and a
+   stopped individual's angles stay as they were at its stop);
+15. COBYLA on config 1's 8-qubit instance (:104-113; 2 generations of 5,
+   30 iterations): row 1 launches, the eigenvalue finite and at or above
+   the table's minimum;
+16. SPSA's routes from the same keys: the solves' first-generation gap and
+   a calibrated last-layer call's gap after 1-8 steps printed (calibrated
+   SPSA amplifies rounding 3-10x per step), and the same call at a fixed
+   rate over 8 steps held to 1e-5 * max|table|.
+
+Phases 12-15 print their solve seconds, evaluations per second, the card's
+name and power limit, and their launches per kernel row.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -111,6 +140,27 @@ MOLECULAR = dict(terms=40, seed=7)
 GROUPED_DRAW_BAR = 0.965
 TFIM20 = dict(qubits=20, population=20, maxiter=20, generations=3, shots=512, sampler_seed=0,
               tournament_size=2, pack_min_layers=6, seed=0)
+#: BASELINE's config 2 (experiments/exp_baseline_configs.py:116-126): the
+#: 12-qubit TFIM, exact estimator, five-point NFT
+CONFIG2 = dict(qubits=12, population=20, maxiter=20, generations=3, seed=0)
+#: BASELINE's config 5 (:154-169): MoG-VQE on a 6-qubit Heisenberg chain
+CONFIG5 = dict(qubits=6, population=16, maxiter=10, generations=3, seed=0)
+#: SPSA on config 4's 20-qubit instance, cut (printed as ``reduced``):
+#: BASELINE's 4 generations to 3, SPSAConfig's 100 steps and 25 calibration
+#: pairs to 30 and 10
+SPSA4 = dict(SOLVE, generations=3, maxiter=30, calibration_steps=10)
+#: COBYLA on config 1's 8-qubit instance (:104-113), its 5 generations cut to 2
+CONFIG1 = dict(qubits=8, population=10, maxiter=30, generations=2, seed=0)
+#: the host-stepped SPSA call with termination checkers (n=20)
+SPSA_CHECKED = dict(population=16, layers=3, maxiter=12, calibration_steps=4, seed=5)
+#: kernel -> its row in PERF.md's kernel table
+ROWS = {
+    "energies_exact": 1, "population_states": 2, "nft_layer_sweep": 3, "population_probs": 4,
+    "sampled_shot_indices": 5, "energies_exact_folded": 6, "population_states_folded": 7,
+    "nft_layer_sweep_folded": 8, "population_probs_folded": 9,
+    "sampled_shot_indices_folded": 10, "grouped_shot_indices_folded": 11,
+    "compact_energies_exact": 12, "compact_probs": 13,
+}
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s outside
 #: the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
@@ -196,7 +246,7 @@ def require(condition: bool, message: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def jssp_with_qubits(n_jobs, n_machines, makespan_limit, want_qubits, op_duration):
+def jssp_with_qubits(n_jobs, n_machines, makespan_limit, want_qubits, op_duration, rel=0.5):
     """The first seeded random JSSP instance whose Hamiltonian has
     ``want_qubits`` qubits (experiments/exp_baseline_configs.py:48-58)."""
     from queasars_tpu_torch.problems.jssp import JSSPDomainWallHamiltonianEncoder
@@ -207,7 +257,7 @@ def jssp_with_qubits(n_jobs, n_machines, makespan_limit, want_qubits, op_duratio
     for seed in range(200):
         instance = random_job_shop_scheduling_instance(
             instance_name=f"bl-{seed}", n_jobs=n_jobs, n_machines=n_machines,
-            relative_op_amount=0.5, op_duration=op_duration, random_seed=seed,
+            relative_op_amount=rel, op_duration=op_duration, random_seed=seed,
         )
         encoder = JSSPDomainWallHamiltonianEncoder(instance, makespan_limit=makespan_limit)
         hamiltonian = encoder.get_problem_hamiltonian()
@@ -1252,36 +1302,48 @@ class _GenerationClock:
         return False
 
 
+def baseline_solver(optimizer, settings, clock=None, penalty=0.1, mog=False):
+    """An exact-estimator solver under the repository's ``evqe_config``
+    (experiments/exp_baseline_configs.py:64-83) on the card: ``settings``
+    gives population, generations, seed and optionally ``pack_min_layers``;
+    ``penalty`` both selection penalties; ``mog`` the MoG-VQE facade;
+    ``clock`` is its termination criterion."""
+    from queasars_tpu_torch.solver import (
+        ConfiguredEstimator,
+        EVQEMinimumEigensolver,
+        EVQEMinimumEigensolverConfiguration,
+        MoGVQEMinimumEigensolver,
+    )
+
+    solver = MoGVQEMinimumEigensolver if mog else EVQEMinimumEigensolver
+    return solver(EVQEMinimumEigensolverConfiguration(
+        configured_estimator=ConfiguredEstimator(),
+        configured_sampler=None,
+        optimizer=optimizer,
+        optimizer_n_circuit_evaluations=None,
+        max_generations=settings["generations"],
+        max_circuit_evaluations=None,
+        termination_criterion=clock,
+        random_seed=settings["seed"],
+        population_size=settings["population"],
+        speciation_genetic_distance_threshold=2,
+        selection_alpha_penalty=penalty,
+        selection_beta_penalty=penalty,
+        parameter_search_probability=0.25,
+        topological_search_probability=0.4,
+        layer_removal_probability=0.05,
+        pack_min_layers=settings.get("pack_min_layers"),
+        device=DEVICE,
+    ))
+
+
 def config4_solver(clock=None):
     """The EVQE solver of the repository's config 4
     (experiments/exp_baseline_configs.py:64-83, 143-151) on the card;
     ``clock`` is its termination criterion."""
     from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
-    from queasars_tpu_torch.solver import (
-        ConfiguredEstimator,
-        EVQEMinimumEigensolver,
-        EVQEMinimumEigensolverConfiguration,
-    )
 
-    return EVQEMinimumEigensolver(EVQEMinimumEigensolverConfiguration(
-        configured_estimator=ConfiguredEstimator(),
-        configured_sampler=None,
-        optimizer=BatchedNFT(NFTConfig(maxiter=SOLVE["maxiter"])),
-        optimizer_n_circuit_evaluations=None,
-        max_generations=SOLVE["generations"],
-        max_circuit_evaluations=None,
-        termination_criterion=clock,
-        random_seed=SOLVE["seed"],
-        population_size=SOLVE["population"],
-        speciation_genetic_distance_threshold=2,
-        selection_alpha_penalty=0.1,
-        selection_beta_penalty=0.1,
-        parameter_search_probability=0.25,
-        topological_search_probability=0.4,
-        layer_removal_probability=0.05,
-        pack_min_layers=SOLVE["pack_min_layers"],
-        device=DEVICE,
-    ))
+    return baseline_solver(BatchedNFT(NFTConfig(maxiter=SOLVE["maxiter"])), SOLVE, clock)
 
 
 def config3_solver(clock=None):
@@ -1558,6 +1620,283 @@ def phase_tfim_solve(route):
     return launches
 
 
+def timed_solve(solver, operator):
+    """Run ``solver`` on ``operator`` with every launch count at 0 before
+    and read after: (result, seconds, launches)."""
+    import torch
+
+    reset_launch_counts()
+    start = time.perf_counter()
+    result = solver.compute_minimum_eigenvalue(operator)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    return result, seconds, launch_counts()
+
+
+def per_row(launches) -> dict:
+    """The non-zero launch counts by kernel row (the sampler epilogue, part
+    of row 5, by its name)."""
+    order = sorted(launches, key=lambda k: ROWS.get(k, len(ROWS) + 1))
+    return {f"row {ROWS[k]}" if k in ROWS else k: launches[k] for k in order if launches[k]}
+
+
+def solve_line(label, result, seconds, card, launches) -> None:
+    """The solve phases' line: seconds, evaluations per second, the card,
+    and the launches per kernel row."""
+    evals = int(sum(result.circuit_evaluations))
+    rows = per_row(launches)
+    say(f"phase {label}: {result.generations} generations in {seconds:.3f} s, {evals} "
+        f"evaluations ({evals / seconds:.1f}/s), eigenvalue {result.eigenvalue:.6f} | {card} | "
+        f"launches per row {rows}")
+
+
+def best_energy_plain(result, operator, table=None) -> float:
+    """The best individual's exact energy from a plain version: the
+    energies version against a diagonal operator's ``table``, else the
+    states version and the operator's dense matrix in float64 on the host
+    (small operators only)."""
+    import numpy as np
+
+    from queasars_tpu_torch.genome import PackedPopulation
+    from queasars_tpu_torch.sim import slot_kernels as sk
+    from queasars_tpu_torch.sim.evaluators import packed_tensors
+
+    packed = PackedPopulation.pack([result.best_individual])
+    tensors = packed_tensors(packed, device=DEVICE)
+    if table is not None:
+        return float(sk.energies_exact_plain(*tensors, table, operator.n_qubits)[0])
+    states = sk.population_states_plain(*tensors, operator.n_qubits)
+    planes = states[0].double().cpu().numpy()
+    psi = planes[0] + 1j * planes[1]
+    return float(np.real(np.vdot(psi, operator.to_dense_matrix() @ psi)))
+
+
+def phase_config2(card):
+    """BASELINE's config 2: the exact-estimator TFIM solve, whose parameter
+    search runs the per-slot loop over the states kernel."""
+    import numpy as np
+
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.problems.spin_chains import transverse_field_ising
+
+    use_route("fold")
+    op = transverse_field_ising(CONFIG2["qubits"], **TFIM)
+    optimizer = BatchedNFT(NFTConfig(maxiter=CONFIG2["maxiter"], five_point=True))
+    result, seconds, launches = timed_solve(
+        baseline_solver(optimizer, CONFIG2, _GenerationClock()), op)
+    solve_line(f"config 2 ({op.n_qubits}-qubit TFIM, exact estimator, per-slot loop)", result,
+               seconds, card, launches)
+    scale = float(np.abs(op.coeffs).sum())
+    ground = float(np.linalg.eigvalsh(op.to_dense_matrix())[0])
+    plain = best_energy_plain(result, op)
+    say(f"  check: eigenvalue {result.eigenvalue:.6f}, ground {ground:.6f}, best individual "
+        f"by the plain version {plain:.6f} (tolerance {1e-5 * scale:.6f})")
+    require(result.generations == CONFIG2["generations"], "config 2 stopped early")
+    require(launches["population_states"] > 0, "config 2 did not launch the states kernel")
+    for name in ("energies_exact", "sampled_shot_indices", "energies_exact_folded",
+                 "sampled_shot_indices_folded"):
+        require(launches[name] == 0, f"kernel {name} ran in config 2")
+    require(ground - 1e-5 * scale <= result.eigenvalue < 0,
+            "config 2's eigenvalue lies below the ground energy or is not negative")
+    require(abs(plain - result.eigenvalue) <= 1e-5 * scale,
+            "config 2's eigenvalue disagrees with the plain version")
+
+
+def phase_config5(card):
+    """BASELINE's config 5: MoG-VQE on a 6-qubit Heisenberg chain."""
+    import numpy as np
+
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.problems.spin_chains import heisenberg_chain
+    from queasars_tpu_torch.solver import result_pareto_front
+
+    use_route("fold")
+    op = heisenberg_chain(CONFIG5["qubits"])
+    optimizer = BatchedNFT(NFTConfig(maxiter=CONFIG5["maxiter"], five_point=True))
+    result, seconds, launches = timed_solve(
+        baseline_solver(optimizer, CONFIG5, _GenerationClock(), penalty=0.0, mog=True), op)
+    solve_line(f"config 5 (MoG-VQE, {op.n_qubits}-qubit Heisenberg)", result, seconds, card,
+               launches)
+    front = result_pareto_front(result)
+    ground = float(np.linalg.eigvalsh(op.to_dense_matrix())[0])
+    best = result.final_population_evaluation_result.best_expectation_value
+    say(f"  Pareto front (energy, controlled gates): "
+        f"{[(round(e, 6), gates) for _, e, gates in front]}; ground {ground:.6f}")
+    require(result.generations == CONFIG5["generations"], "config 5 stopped early")
+    require(launches["population_states"] > 0, "config 5 did not launch the states kernel")
+    require(result.eigenvalue >= ground - 1e-3, "config 5's eigenvalue lies below the ground energy")
+    require(len(front) > 0, "config 5's Pareto front is empty")
+    for _, e1, g1 in front:
+        for _, e2, g2 in front:
+            require(not (e1 <= e2 and g1 <= g2 and (e1 < e2 or g1 < g2)),
+                    "config 5's Pareto front holds a dominated point")
+    require(min(e for _, e, _ in front) == best,
+            "config 5's Pareto front misses the generation's best energy")
+
+
+def phase_spsa_solve(route, card, hamiltonian, table):
+    """SPSA on config 4's 20-qubit instance on one route; returns its
+    result."""
+    import numpy as np
+
+    from queasars_tpu_torch.optim import BatchedSPSA, SPSAConfig
+
+    use_route(route)
+    optimizer = BatchedSPSA(SPSAConfig(maxiter=SPSA4["maxiter"],
+                                       calibration_steps=SPSA4["calibration_steps"]))
+    result, seconds, launches = timed_solve(
+        baseline_solver(optimizer, SPSA4, _GenerationClock()), hamiltonian)
+    solve_line(f"SPSA config 4 ({route} route, {hamiltonian.n_qubits} qubits)", result, seconds,
+               card, launches)
+    say(f"  reduced: generations {SOLVE['generations']} -> {SPSA4['generations']}, SPSA steps "
+        f"100 -> {SPSA4['maxiter']}, calibration pairs 25 -> {SPSA4['calibration_steps']} "
+        f"(qubits uncut)")
+    tol = 1e-5 * float(table.abs().max())
+    plain = best_energy_plain(result, hamiltonian, table)
+    say(f"  check: eigenvalue {result.eigenvalue:.6f}, table minimum {float(table.min()):.6f}, "
+        f"best individual by the plain version {plain:.6f} (tolerance {tol:.6f})")
+    require(result.generations == SPSA4["generations"], "the SPSA solve stopped early")
+    if route == "slot":
+        require(launches["energies_exact"] > 0 and launches["population_states"] > 0,
+                "the slot route's SPSA solve did not launch rows 1 and 2")
+        require(launches["energies_exact_folded"] == 0, "row 6 ran on the slot route")
+    else:
+        require(launches["energies_exact_folded"] > 0, "the fold route's SPSA solve skipped row 6")
+    require(np.isfinite(result.eigenvalue) and result.eigenvalue >= float(table.min()) - tol,
+            "the SPSA eigenvalue lies below the table's minimum")
+    require(abs(plain - result.eigenvalue) <= tol,
+            "the SPSA eigenvalue disagrees with the plain version")
+    return result
+
+
+def last_layer_problem(n_qubits, settings):
+    """A seeded random population packed as config 4's solve packs it, with
+    each individual's last-layer coordinates: (packed, coords, n_free)."""
+    import numpy as np
+
+    from queasars_tpu_torch.genome import EVQEPopulation, PackedPopulation
+
+    population = EVQEPopulation.random_population(
+        n_qubits, settings["layers"], settings["population"], True, random_seed=settings["seed"])
+    packed = PackedPopulation.pack(list(population.individuals), min_layers=SOLVE["pack_min_layers"])
+    coords_list = [packed.layer_param_coordinates(i, -1) for i in range(packed.n_individuals)]
+    coords = np.zeros((packed.n_individuals, max(len(c) for c in coords_list), 3), np.int32)
+    n_free = np.array([len(c) for c in coords_list], np.int32)
+    for i, c in enumerate(coords_list):
+        coords[i, : len(c)] = c
+    return packed, coords, n_free
+
+
+def phase_spsa_routes_agree(results, hamiltonian, table):
+    """SPSA on both routes from the same keys.  SPSA at calibrated rates
+    moves each coordinate by about pi per step, so the routes' rounding
+    differences grow 3-10x per step (tests/test_torch_spsa.py): the solves'
+    first-generation gap and one calibrated last-layer call's gap after 1,
+    2, 4 and 8 steps are printed for the record.  The bar holds the same
+    call at a fixed rate of 1e-5 (steps of about 0.05 rad on this table,
+    where rounding does not grow) over 8 steps: both routes within
+    1e-5 * max|table| per individual."""
+    import numpy as np
+
+    from queasars_tpu_torch.optim import BatchedSPSA, SPSAConfig
+    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+
+    scale = float(table.abs().max())
+    slot, fold = (np.asarray(r.population_evaluation_results[0].expectation_values)
+                  for r in results)
+    gap = np.abs(slot - fold) / scale
+    say(f"  SPSA routes, solves' generation 1 (record): largest |slot - fold| / max|table| "
+        f"{gap.max():.3e}, per individual {np.array2string(gap, precision=2)}")
+    packed, coords, n_free = last_layer_problem(hamiltonian.n_qubits, SPSA_CHECKED)
+    last = (packed.layer_mask.sum(axis=1) - 1).astype(np.int32)
+
+    def route_gap(config) -> float:
+        energies = []
+        for route in ("slot", "fold"):
+            use_route(route)
+            energies.append(BatchedSPSA(config).minimize(
+                StatevectorExpectationEvaluator(hamiltonian, device=DEVICE), packed, coords,
+                n_free, n_free > 0, seed=SPSA_CHECKED["seed"], last_layer=last)[1])
+        return float(np.abs(energies[0] - energies[1]).max()) / scale
+
+    calibrated = {steps: route_gap(SPSAConfig(
+        maxiter=steps, calibration_steps=SPSA4["calibration_steps"])) for steps in (1, 2, 4, 8)}
+    fixed = route_gap(SPSAConfig(maxiter=8, learning_rate=1e-5))
+    say(f"  SPSA routes, one last-layer call, largest |slot - fold| / max|table|: calibrated "
+        f"(record) after {', '.join(f'{k} steps {v:.3e}' for k, v in calibrated.items())}; "
+        f"fixed rate 1e-5 after 8 steps {fixed:.3e} (bar 1e-5)")
+    require(fixed <= 1e-5, "the routes' SPSA energies disagree at a fixed rate")
+
+
+def phase_spsa_checkers(card, hamiltonian):
+    """One host-stepped BatchedSPSA.minimize call at n=20 with a
+    termination checker per individual: each stops at its maxfev."""
+    import numpy as np
+
+    from queasars_tpu_torch.optim import BatchedSPSA, SPSAConfig, SPSATerminationChecker
+    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+
+    class Recording(SPSATerminationChecker):
+        """Keeps the last call's evaluation count and parameters."""
+
+        def termination_check(self, n_function_evaluations, parameter_values, **kwargs):
+            self.last = (n_function_evaluations, np.array(parameter_values, copy=True))
+            return super().termination_check(n_function_evaluations, parameter_values, **kwargs)
+
+    use_route("fold")
+    cfg = SPSA_CHECKED
+    packed, coords, n_free = last_layer_problem(hamiltonian.n_qubits, cfg)
+    calibration = 2 * cfg["calibration_steps"]
+    # minimum relative change 0 never stalls: individual i stops at its maxfev,
+    # after 1 + i % 6 steps
+    maxfev = [calibration + 2 * (1 + i % 6) for i in range(packed.n_individuals)]
+    checkers = [Recording(0.0, 0, maxfev=m) for m in maxfev]
+    reset_launch_counts()
+    start = time.perf_counter()
+    angles, energies, nfev = BatchedSPSA(SPSAConfig(
+        maxiter=cfg["maxiter"], calibration_steps=cfg["calibration_steps"])).minimize(
+        StatevectorExpectationEvaluator(hamiltonian, device=DEVICE), packed, coords, n_free,
+        n_free > 0, seed=cfg["seed"], termination_checkers=checkers)
+    seconds = time.perf_counter() - start
+    launches = per_row(launch_counts())
+    say(f"phase SPSA with termination checkers (n={hamiltonian.n_qubits}, P={len(checkers)}): "
+        f"{seconds:.3f} s, nfev {nfev} (checkers allowed {max(maxfev)}) | {card} | launches "
+        f"per row {launches}")
+    require(nfev == max(maxfev), "the host-stepped SPSA call ran past its checkers")
+    for i, checker in enumerate(checkers):
+        last_nfev, last_parameters = checker.last
+        require(last_nfev == maxfev[i], f"individual {i} stopped at nfev {last_nfev}, not "
+                                        f"{maxfev[i]}")
+        require(np.array_equal(angles[i], last_parameters),
+                f"individual {i}'s angles moved after its checker stopped it")
+    require(np.all(np.isfinite(energies)), "the host-stepped SPSA energies are not finite")
+
+
+def phase_cobyla(card):
+    """COBYLA on config 1's 8-qubit JSSP instance."""
+    import numpy as np
+    import torch
+
+    from queasars_tpu_torch.optim import CobylaConfig, ScipyCobyla
+    from queasars_tpu_torch.paulis import diagonal_energy_table
+
+    use_route("fold")
+    seed, _, hamiltonian = jssp_with_qubits(2, 2, 4, CONFIG1["qubits"], 1, rel=1.0)
+    table = diagonal_energy_table(hamiltonian, dtype=torch.float32, device=DEVICE)
+    optimizer = ScipyCobyla(CobylaConfig(maxiter=CONFIG1["maxiter"]))
+    result, seconds, launches = timed_solve(
+        baseline_solver(optimizer, CONFIG1, _GenerationClock()), hamiltonian)
+    solve_line(f"COBYLA config 1 ({hamiltonian.n_qubits}-qubit JSSP, instance seed {seed})",
+               result, seconds, card, launches)
+    minimum = float(table.min())
+    say(f"  check: eigenvalue {result.eigenvalue:.6f}, table minimum {minimum:.6f}")
+    require(result.generations == CONFIG1["generations"], "the COBYLA solve stopped early")
+    require(launches["energies_exact"] > 0, "the COBYLA solve did not launch row 1")
+    require(np.isfinite(result.eigenvalue)
+            and result.eigenvalue >= minimum - 1e-5 * float(table.abs().max()),
+            "the COBYLA eigenvalue lies below the table's minimum")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     try:
@@ -1610,6 +1949,12 @@ def main() -> int:
             counts = phase_tfim_solve(route)
             if route == "fold":
                 launches[route_kernels[0]] = counts[route_kernels[0]]
+        phase_config2(card)
+        phase_config5(card)
+        spsa = [phase_spsa_solve(route, card, hamiltonian, table) for route in ("slot", "fold")]
+        phase_spsa_checkers(card, hamiltonian)
+        phase_cobyla(card)
+        phase_spsa_routes_agree(spsa, hamiltonian, table)
     except Failure as failure:
         say(f"FAILED: {failure}")
         return 1

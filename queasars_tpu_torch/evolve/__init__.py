@@ -16,6 +16,12 @@ from queasars_tpu_torch.evolve.mutation import (
     EVQETopologicalSearch,
     EVQELayerRemoval,
 )
+from queasars_tpu_torch.evolve.multiobjective import (
+    MultiObjectiveEVQESelection,
+    non_dominated_sort,
+    crowding_distance,
+    pareto_front,
+)
 from queasars_tpu_torch.evolve.speciation import EVQESpeciation
 from queasars_tpu_torch.evolve.selection import EVQESelection, EVQESelectionException
 
@@ -28,6 +34,10 @@ __all__ = [
     "EVQETopologicalSearch",
     "EVQELayerRemoval",
     "EVQESpeciation",
+    "MultiObjectiveEVQESelection",
+    "non_dominated_sort",
+    "crowding_distance",
+    "pareto_front",
     "EVQESelection",
     "EVQESelectionException",
 ]

@@ -225,8 +225,15 @@ class EVQEParameterSearch(BaseEVQEMutationOperator):
         angles = packed.angles
         total_evals = 0
         max_slots = max((len(o) for o in orders), default=0)
-        if max_slots > 0:
-            angles, total_evals = self._apply_fused_slots(
+
+        fused = self._apply_fused_slots(
+            individuals, selected, orders, slot_seeds, packed, angles,
+            operator_context, max_slots,
+        )
+        if fused is not None:
+            angles, total_evals = fused
+        else:
+            angles, total_evals = self._apply_slot_loop(
                 individuals, selected, orders, slot_seeds, packed, angles,
                 operator_context, max_slots,
             )
@@ -243,16 +250,12 @@ class EVQEParameterSearch(BaseEVQEMutationOperator):
         self, individuals, selected, orders, slot_seeds, packed, angles,
         operator_context, max_slots,
     ):
-        """One fused parameter search for all layer slots — see
-        BatchedNFT.minimize_slots.  The sequential per-slot loop that the
-        JAX package falls back to (its jnp-default route) is not ported, so
-        an optimizer or evaluator without the fused route is refused."""
+        """One fused device program for all layer slots (optimizer
+        permitting) — see BatchedNFT.minimize_slots.  Returns None to fall
+        back to the sequential per-slot loop."""
         fused = getattr(self.optimizer, "minimize_slots", None)
-        if fused is None:
-            raise NotImplementedError(
-                f"{type(self.optimizer).__name__} has no fused slot search; "
-                "the per-slot parameter-search loop is not ported"
-            )
+        if fused is None or max_slots == 0:
+            return None
         pop = len(individuals)
         k_max = 1
         for i in range(pop):
@@ -283,13 +286,32 @@ class EVQEParameterSearch(BaseEVQEMutationOperator):
             slot_layers, angles=angles, seeds=seeds,
         )
         if result is None:
-            raise NotImplementedError(
-                f"{type(operator_context.circuit_evaluator).__name__} has no fused slot "
-                "search; the per-slot parameter-search loop is not ported"
-            )
+            return None
         new_angles, _, nfev_each = result
         total = int(active.sum()) * int(nfev_each)
         return new_angles, total
+
+    def _apply_slot_loop(
+        self, individuals, selected, orders, slot_seeds, packed, angles,
+        operator_context, max_slots,
+    ):
+        """Sequential per-slot optimization (one optimizer call per slot)."""
+        total_evals = 0
+        for s in range(max_slots):
+            layer_choice: list[Optional[int]] = [
+                orders[i][s] if selected[i] and s < len(orders[i]) else None
+                for i in range(len(individuals))
+            ]
+            slot_selected = np.array([c is not None for c in layer_choice])
+            seed_mix = next(
+                (slot_seeds[i][s] for i in range(len(individuals)) if slot_selected[i]), 0
+            )
+            angles, _, n_evals = _batched_layer_optimization(
+                individuals, slot_selected, layer_choice,
+                self.optimizer, operator_context.circuit_evaluator, angles, packed, seed_mix,
+            )
+            total_evals += n_evals
+        return angles, total_evals
 
     def get_n_expected_circuit_evaluations(self, population, operator_context):
         if self.optimizer_n_circuit_evaluations is not None:

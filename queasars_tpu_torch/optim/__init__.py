@@ -1,5 +1,18 @@
-"""Batched parameter optimizers (NFT) over the fold and slot kernels."""
+"""Batched parameter optimizers over the fold and slot kernels: NFT and
+SPSA (with its termination checker) in population lock-step, and COBYLA
+per individual."""
 
 from queasars_tpu_torch.optim.nft import BatchedNFT, NFTConfig
+from queasars_tpu_torch.optim.spsa import BatchedSPSA, SPSAConfig
+from queasars_tpu_torch.optim.cobyla import CobylaConfig, ScipyCobyla
+from queasars_tpu_torch.optim.spsa_termination import SPSATerminationChecker
 
-__all__ = ["BatchedNFT", "NFTConfig"]
+__all__ = [
+    "BatchedNFT",
+    "NFTConfig",
+    "BatchedSPSA",
+    "SPSAConfig",
+    "CobylaConfig",
+    "ScipyCobyla",
+    "SPSATerminationChecker",
+]

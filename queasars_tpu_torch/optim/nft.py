@@ -57,7 +57,11 @@ from queasars_tpu_torch.optim.objective import (
     population_energies,
 )
 from queasars_tpu_torch.optim.prefix import (
+    build_prefix_transform,
+    cache_enabled,
     choose_prefix_engine,
+    kernel_route,
+    prefix_enabled,
     prefix_mask,
     simulate_prefix_states,
 )
@@ -78,16 +82,25 @@ class NFTConfig:
     :param reset_interval: re-measure the recycled z0 every this many steps
     :param five_point: the exact two-frequency fit (see the module
         docstring) instead of the 3-point sinusoid
-
-    Every last-layer search simulates the frozen prefix layers once and
-    re-enters every probe from the cached state (mathematically identical
-    to full-circuit probes; float rounding may differ at the ulp level);
-    with the plain expectation it runs as one sweep-kernel call.
+    :param cache_prefix: a last-layer search simulates the frozen prefix
+        layers once and re-enters every probe from the cached state
+        (mathematically identical to full-circuit probes; float rounding
+        may differ at the ulp level), and a multi-slot search runs fused
+        (:meth:`BatchedNFT.minimize_slots`).  None (default) enables it on
+        the kernel route, i.e. for every objective but a general
+        operator's exact one (``optim/prefix.py``); True/False forces it.
+    :param in_kernel_sweep: with the prefix cache on, run the plain exact
+        expectation's last-layer search as one sweep-kernel call instead
+        of the prefix-state probe loop.  None (default) = on wherever it
+        applies; False forces the loop; True also takes it off the kernel
+        route.
     """
 
     maxiter: int = 40
     reset_interval: int = 32
     five_point: bool = False
+    cache_prefix: Optional[bool] = None
+    in_kernel_sweep: Optional[bool] = None
 
     def n_circuit_evaluations(self) -> int:
         """Evaluations used per optimized individual (ledger input for the
@@ -268,51 +281,55 @@ class BatchedNFT:
         active_t = torch.as_tensor(active, dtype=torch.bool, device=device)
         pop_keys = prng.split(prng.PRNGKey(seed), pop) if operands["use_shots"] else None
         cfg = self.config
-        exact_general = operands["use_general"] and not operands["use_shots"]
 
-        if last_layer is None or exact_general:
+        if not prefix_enabled(cfg.cache_prefix, operands, last_layer):
             objective = self._objective(operands, n, gt, ctrl, lm, initial)
             out, energies = _nft_steps(
                 objective, ang, coords_t, n_free_t, active_t, cfg.maxiter, cfg.reset_interval,
                 pop_keys, cfg.five_point,
             )
-        else:
+        elif self._in_kernel_sweep_applies(operands):
             rows = torch.arange(pop, device=device)
             ll = torch.as_tensor(last_layer, dtype=torch.long, device=device)
+            launch = (
+                nft_layer_sweep_folded_launch
+                if mxu_fold_enabled(None, n, path="sweep", device=device)
+                else nft_layer_sweep_launch
+            )
             out = ang.clone()
-            if not (
-                operands["use_cvar"] or operands["use_shots"] or operands["use_general"]
-                or cfg.five_point
-            ):
-                launch = (
-                    nft_layer_sweep_folded_launch
-                    if mxu_fold_enabled(None, n, path="sweep", device=device)
-                    else nft_layer_sweep_launch
-                )
-                out[rows, ll], energies = launch(
-                    gt, ctrl, ang, lm, ll,
-                    coords_t[:, :, 1:3].to(torch.int32).contiguous(), n_free_t, active_t,
-                    operands["table"], n_qubits=n, maxiter=cfg.maxiter,
-                    reset_interval=cfg.reset_interval, initial_state=initial,
-                )
-            else:
-                prefix = simulate_prefix_states(
-                    gt, ctrl, ang, prefix_mask(lm, ll), n, initial,
-                    mode=choose_prefix_engine(n, device),
-                )
-                layer_coords = coords_t.clone()
-                layer_coords[:, :, 0] = 0
-                objective = self._objective(
-                    operands, n, gt[rows, ll][:, None].contiguous(),
-                    ctrl[rows, ll][:, None].contiguous(),
-                    torch.ones((pop, 1), dtype=torch.bool, device=device), prefix,
-                )
-                layer_angles, energies = _nft_steps(
-                    objective, ang[rows, ll][:, None].contiguous(), layer_coords, n_free_t,
-                    active_t, cfg.maxiter, cfg.reset_interval, pop_keys, cfg.five_point,
-                )
-                out[rows, ll] = layer_angles[:, 0]
+            out[rows, ll], energies = launch(
+                gt, ctrl, ang, lm, ll,
+                coords_t[:, :, 1:3].to(torch.int32).contiguous(), n_free_t, active_t,
+                operands["table"], n_qubits=n, maxiter=cfg.maxiter,
+                reset_interval=cfg.reset_interval, initial_state=initial,
+            )
+        else:
+            transform = build_prefix_transform(gt, ctrl, ang, lm, coords_t, last_layer, n, initial)
+            objective = self._objective(
+                operands, n, transform.gate_types, transform.controls, transform.layer_mask,
+                transform.initial_state,
+            )
+            layer_angles, energies = _nft_steps(
+                objective, transform.angles, transform.coords, n_free_t, active_t, cfg.maxiter,
+                cfg.reset_interval, pop_keys, cfg.five_point,
+            )
+            out = transform.merge(layer_angles)
         return out.cpu().numpy(), energies.cpu().numpy(), cfg.n_circuit_evaluations()
+
+    def _in_kernel_sweep_applies(self, operands) -> bool:
+        """Resolve the ``in_kernel_sweep`` knob as the reference does
+        (``_in_kernel_sweep_applies``): the sweep kernel takes the plain
+        exact expectation of a diagonal operator with three-point steps;
+        None takes it on the kernel route, True off it too.  Unlike the
+        reference's, the port's sweep kernels take a shared start state and
+        have no size cap."""
+        flag = self.config.in_kernel_sweep
+        if flag is False or (flag is None and not kernel_route(operands)):
+            return False
+        return not (
+            operands["use_shots"] or operands["use_cvar"] or operands["use_general"]
+            or self.config.five_point
+        )
 
     def minimize_slots(
         self,
@@ -334,8 +351,9 @@ class BatchedNFT:
         a slot out carries ``packed.max_layers``.  ``seeds`` [S] seed the
         shot-sampling objective, slot s with ``split(PRNGKey(seeds[s]),
         P)`` (unused on the exact path; None = zeros).  Returns None for an
-        unsupported evaluator and for a general operator's exact objective,
-        as the reference does (the per-slot loop they need is not ported).
+        unsupported evaluator and where the ``cache_prefix`` knob resolves
+        off (by default a general operator's exact objective), as the
+        reference does: the caller then runs the per-slot loop.
 
         :return: (optimized angles, last-slot energies, evaluations used
             per active individual per slot)
@@ -344,7 +362,7 @@ class BatchedNFT:
             operands = objective_operands(evaluator)
         except TypeError:
             return None
-        if operands["use_general"] and not operands["use_shots"]:
+        if not cache_enabled(self.config.cache_prefix, operands):
             return None
         device = evaluator.device
         n = packed.n_qubits

@@ -1,4 +1,5 @@
-"""Solvers: the generic evolving-ansatz driver and the EVQE facade."""
+"""Solvers: the generic evolving-ansatz driver, the EVQE facade and
+MoG-VQE."""
 
 from queasars_tpu_torch.solver.termination_criteria import (
     BestIndividualChangeTolerance,
@@ -15,6 +16,7 @@ from queasars_tpu_torch.solver.driver import (
     EvolvingAnsatzMinimumEigensolverConfiguration,
 )
 from queasars_tpu_torch.solver.evqe import EVQEMinimumEigensolver, EVQEMinimumEigensolverConfiguration
+from queasars_tpu_torch.solver.mog_vqe import MoGVQEMinimumEigensolver, result_pareto_front
 
 __all__ = [
     "BestIndividualChangeTolerance",
@@ -30,4 +32,6 @@ __all__ = [
     "EvolvingAnsatzMinimumEigensolverConfiguration",
     "EVQEMinimumEigensolver",
     "EVQEMinimumEigensolverConfiguration",
+    "MoGVQEMinimumEigensolver",
+    "result_pareto_front",
 ]

@@ -12,10 +12,11 @@ search and selection energy reuse; with a configured sampler (or an
 estimator ``precision``), shot-sampled evaluation through the in-kernel
 samplers -- grouped by QWC measurement groups for a general operator, with
 the sampler's ``shot_allocation`` -- and a sampled final distribution in the
-computational basis.  Not ported yet, each refused with
-``NotImplementedError``: checkpoint and resume, the device mesh, and an
-exact estimator solve of a general operator (its parameter search needs the
-per-slot loop, ``EVQEParameterSearch``).
+computational basis.  Where the fused search does not apply (an exact
+estimator solve of a general operator, an optimizer's ``cache_prefix``
+off, COBYLA), ``EVQEParameterSearch`` runs its per-slot loop.  Not ported
+yet, each refused with ``NotImplementedError``: checkpoint and resume, and
+the device mesh.
 """
 
 from __future__ import annotations

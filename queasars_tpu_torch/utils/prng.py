@@ -43,11 +43,13 @@ def threefry2x32(k0, k1, x0, x1):
 
 
 def PRNGKey(seed: int, device="cpu") -> torch.Tensor:  # noqa: N802 (jax.random's name)
-    """The key of an integer seed in [0, 2^64): its high and low words."""
+    """The key of an integer seed in [0, 2^63): ``[0, seed mod 2^32]``, as
+    ``jax.random.PRNGKey`` makes it with 64-bit types off (the JAX
+    package's setting), which keeps a seed's low 32 bits only."""
     seed = int(seed)
-    if not 0 <= seed < 1 << 64:
-        raise ValueError("seed must lie in [0, 2^64)")
-    return torch.tensor([seed >> 32, seed & MASK], dtype=torch.int64, device=device)
+    if not 0 <= seed < 1 << 63:
+        raise ValueError("seed must lie in [0, 2^63)")
+    return torch.tensor([0, seed & MASK], dtype=torch.int64, device=device)
 
 
 def _words(key: torch.Tensor):

@@ -887,3 +887,126 @@ def test_compact_kernels_launch_the_engine_per_layer_and_window(cuda_device, n_q
                 assert sum(c for k, c in kernels.items() if part in k) == want, (label, kernels)
     if n == 23:  # beyond the other tests' widths: against the slot kernel too
         assert torch.equal(ck.compact_probs(compact, ang), sk.population_probs(gt, ctrl, ang, mask, n))
+
+
+def _diagonal_operator(n_qubits, terms, seed):
+    from queasars_tpu_torch.paulis import PauliSum
+
+    rng = np.random.default_rng(seed)
+    labels = []
+    for _ in range(terms):
+        z = int(rng.integers(1, 1 << n_qubits))
+        labels.append("".join("Z" if (z >> q) & 1 else "I" for q in range(n_qubits))[::-1])
+    return PauliSum.sum([PauliSum.from_label(l, float(rng.normal())) for l in labels])
+
+
+def _spsa_problem(n_qubits=14, pop=6, layers=3, seed=4):
+    population = EVQEPopulation.random_population(n_qubits, layers, pop, True, random_seed=seed)
+    return PackedPopulation.pack(list(population.individuals), min_layers=layers + 1)
+
+
+def _recorded_directions(monkeypatch):
+    from queasars_tpu_torch.optim import spsa
+
+    recorded = []
+    direction = spsa._Search.direction
+
+    def spy(self, k):
+        recorded.append(direction(self, k).cpu())
+        return recorded[-1].to(self.coord_mask.device)
+
+    monkeypatch.setattr(spsa._Search, "direction", spy)
+    return recorded
+
+
+def _spsa_run(device, path, monkeypatch):
+    """One SPSA search of :func:`test_spsa_on_the_card_matches_the_cpu` on
+    ``device``: (its result, the directions it drew, the calibration
+    magnitudes of the first slot's coordinates, its evaluator)."""
+    from queasars_tpu_torch.optim import BatchedSPSA, SPSAConfig
+    from queasars_tpu_torch.optim.objective import objective_operands
+    from queasars_tpu_torch.optim.spsa import _Search
+    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+    from queasars_tpu_torch.utils import prng
+
+    packed = _spsa_problem()
+    pop = packed.n_individuals
+    real = packed.layer_mask.sum(axis=1)
+    slots = 2
+    coords = np.zeros((pop, slots, 3 * packed.n_qubits, 3), np.int32)
+    n_free = np.zeros((pop, slots), np.int32)
+    slot_layers = np.full((pop, slots), packed.max_layers, np.int32)
+    for i in range(pop):
+        for s in range(min(slots, real[i])):
+            layer = real[i] - 1 - s
+            c = packed.layer_param_coordinates(i, layer)
+            coords[i, s, : len(c)], n_free[i, s], slot_layers[i, s] = c, len(c), layer
+    recorded = _recorded_directions(monkeypatch)
+    evaluator = StatevectorExpectationEvaluator(_diagonal_operator(14, 12, seed=5), device=device)
+    spsa = BatchedSPSA(SPSAConfig(maxiter=6, learning_rate=0.1))
+    if path == "slots":
+        out = spsa.minimize_slots(evaluator, packed, coords, n_free, n_free > 0, slot_layers,
+                                  seeds=np.array([3, 4]))
+    else:
+        last = (real - 1).astype(np.int32) if path == "prefix" else None
+        out = spsa.minimize(evaluator, packed, coords[:, 0], n_free[:, 0], n_free[:, 0] > 0,
+                            seed=3, last_layer=last)
+    gt, ctrl, ang, lm = packed_tensors(packed, device=device)
+    mask = torch.as_tensor(np.arange(coords.shape[2])[None, :] < n_free[:, 0, None],
+                           dtype=torch.float32, device=device)
+    search = _Search(objective_operands(evaluator), packed.n_qubits, (gt, ctrl, lm), None,
+                     ang.shape, torch.as_tensor(coords[:, 0], dtype=torch.long, device=device),
+                     mask, prng.split(prng.PRNGKey(3), pop))
+    magnitude = search.calibrate(ang, SPSAConfig(calibration_steps=4)).cpu().numpy()
+    monkeypatch.undo()
+    return out, torch.stack(recorded), magnitude, evaluator, packed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["full", "prefix", "slots"])
+def test_spsa_on_the_card_matches_the_cpu(cuda_device, monkeypatch, path):
+    """SPSA at n=14 on the card against the same search on the CPU (plain
+    versions): the same directions, energies to 1e-5 * max|table|, and the
+    calibration magnitudes to 1e-5 relative.  A fixed learning rate keeps
+    the steps near 0.1 rad, where rounding differences do not grow."""
+    card, card_dirs, card_mag, _, _ = _spsa_run("cuda", path, monkeypatch)
+    cpu, cpu_dirs, cpu_mag, cpu_eval, packed = _spsa_run("cpu", path, monkeypatch)
+    tol = 1e-5 * float(cpu_eval._table.abs().max())
+    assert torch.equal(card_dirs, cpu_dirs) and card[2] == cpu[2]
+    np.testing.assert_allclose(card_mag, cpu_mag, rtol=1e-5)
+    np.testing.assert_allclose(card[1], cpu[1], atol=tol, rtol=0)
+    np.testing.assert_allclose(cpu_eval.evaluate_packed(packed, angles=card[0]),
+                               cpu_eval.evaluate_packed(packed, angles=cpu[0]), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_slot_loop_on_the_card_matches_the_cpu(cuda_device):
+    """EVQEParameterSearch on a 12-qubit TFIM's exact objective (no fused
+    route: the per-slot loop, five-point NFT) on the card against the CPU,
+    as energies to 1e-4 * sum|c|, with equal evaluation counts."""
+    from queasars_tpu_torch.evolve import EVQEParameterSearch
+    from queasars_tpu_torch.evolve.base import OperatorContext
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.problems.spin_chains import transverse_field_ising
+    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+
+    op = transverse_field_ising(12, coupling=1.0, field=0.9)
+    results = []
+    for device in ("cuda", "cpu"):
+        counts = []
+        evaluator = StatevectorExpectationEvaluator(op, device=device)
+        context = OperatorContext(circuit_evaluator=evaluator, result_callback=lambda _: None,
+                                  circuit_evaluation_count_callback=counts.append)
+        population = EVQEPopulation.random_population(12, 3, 8, True, random_seed=6)
+        search = EVQEParameterSearch(1.0, BatchedNFT(NFTConfig(maxiter=6, five_point=True)), None,
+                                     random_seed=2)
+        out = search.apply_operator(population, context)
+        results.append((out, counts))
+    cpu_eval = StatevectorExpectationEvaluator(op, device="cpu")
+    (card, card_counts), (cpu, cpu_counts) = results
+    assert card_counts == cpu_counts and card_counts[0] > 0
+    np.testing.assert_allclose(
+        cpu_eval.evaluate_individuals(list(card.individuals)),
+        cpu_eval.evaluate_individuals(list(cpu.individuals)),
+        atol=1e-4 * float(np.abs(op.coeffs).sum()), rtol=0,
+    )

@@ -14,8 +14,9 @@ operators replayed with the JAX package's sampler evaluator and optimizer
 doing the numbers give the JAX solver's structures and energies exactly.
 
 (3) What the driver builds: an exact-estimator solve of a general operator
-is refused (its parameter search needs the per-slot loop, as in the JAX
-package's route), an estimator with ``precision > 0`` solves through the
+runs its parameter search through the per-slot loop (the fused slot search
+refuses it, as the JAX package's does) and matches the JAX solve in
+generation 1, an estimator with ``precision > 0`` solves through the
 grouped sampler, and the sampler's ``shot_allocation`` reaches the main and
 the aux evaluators.
 """
@@ -23,12 +24,12 @@ the aux evaluators.
 from __future__ import annotations
 
 import numpy as np
-import pytest
 
 from queasars_tpu.optim import BatchedNFT as JaxNFT
 from queasars_tpu.optim import NFTConfig as JaxNFTConfig
 from queasars_tpu.problems.spin_chains import transverse_field_ising as jax_tfim
 from queasars_tpu.sim.evaluators import SamplerExpectationEvaluator as JaxSampler
+from queasars_tpu.solver import ConfiguredEstimator as JaxEstimator
 from queasars_tpu.solver import ConfiguredSampler as JaxConfiguredSampler
 from queasars_tpu.solver import EVQEMinimumEigensolver as JaxSolver
 from queasars_tpu.solver import EVQEMinimumEigensolverConfiguration as JaxConfig
@@ -112,13 +113,39 @@ def test_host_call_order_with_the_jax_numerics():
     assert replay.eigenvalue == ref.eigenvalue
 
 
-def test_exact_estimator_solve_of_a_general_operator_is_refused():
-    solver = _port_solver(
+def test_exact_estimator_solve_of_a_general_operator_is_refused(monkeypatch):
+    """The fused slot search refuses this solve (``minimize_slots`` returns
+    None for a general operator's exact objective), so its parameter search
+    runs the per-slot loop; generation 1 matches the JAX solve, which takes
+    the same loop, to 1e-5 * sum|c|."""
+    op, op_ref = transverse_field_ising(N, **TFIM), jax_tfim(N, **TFIM)
+    fused_results = []
+    fused = BatchedNFT.minimize_slots
+
+    def spy(self, *args, **kwargs):
+        fused_results.append(fused(self, *args, **kwargs))
+        return fused_results[-1]
+
+    monkeypatch.setattr(BatchedNFT, "minimize_slots", spy)
+    ours = _port_solver(
         BatchedNFT(NFTConfig(**NFT)), configured_estimator=ConfiguredEstimator(),
         parameter_search_probability=1.0,
+    ).compute_minimum_eigenvalue(op)
+    ref = JaxSolver(JaxConfig(
+        configured_sampler=JaxConfiguredSampler(shots=512, seed=0),
+        optimizer=JaxNFT(JaxNFTConfig(**NFT)),
+        **{**GENERAL, "configured_estimator": JaxEstimator(), "parameter_search_probability": 1.0},
+    )).compute_minimum_eigenvalue(op_ref)
+    assert fused_results and all(result is None for result in fused_results)
+    assert ours.generations == ref.generations == 2
+    assert _structures(ours)[0] == _structures(ref)[0]
+    assert ours.circuit_evaluations[0] == ref.circuit_evaluations[0]
+    np.testing.assert_allclose(
+        ours.population_evaluation_results[0].expectation_values,
+        ref.population_evaluation_results[0].expectation_values,
+        atol=1e-5 * float(np.abs(op_ref.coeffs).sum()), rtol=0,
     )
-    with pytest.raises(NotImplementedError, match="per-slot parameter-search loop"):
-        solver.compute_minimum_eigenvalue(transverse_field_ising(N, **TFIM))
+    assert ours.eigenvalue < 0 and _shots_sum(ours) == 512
 
 
 def test_estimator_with_precision_solves_through_grouped_sampling():

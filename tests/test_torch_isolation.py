@@ -1,6 +1,7 @@
 """The port reaches neither JAX nor the JAX package: in a fresh process with
 ``jax`` and ``queasars_tpu`` blocked, every module of ``queasars_tpu_torch``
-and ``chip_smoke`` (not run) import, and ``chip_smoke`` refuses to run
+(the optimizers, MoG-VQE and multi-objective selection among them) and
+``chip_smoke`` (not run) import, and ``chip_smoke`` refuses to run
 without a CUDA device."""
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ for name in ("jax", "jaxlib", "queasars_tpu"):
     sys.modules[name] = None
 import queasars_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(queasars_tpu_torch.__path__, "queasars_tpu_torch.")]
+required = ["queasars_tpu_torch." + m for m in (
+    "optim.spsa", "optim.spsa_termination", "optim.cobyla", "evolve.multiobjective",
+    "solver.mog_vqe")]
+assert set(required) <= set(names), sorted(set(required) - set(names))
 for name in names:
     importlib.import_module(name)
 import chip_smoke

@@ -106,10 +106,10 @@ def test_pinned_structural_trajectory():
     optimizer doing the numbers.  The fixture's 4-qubit operator has
     exactly degenerate energies, so its tournaments are decided at the ulp
     level; the JAX numerics keep those decisions, and the fixture then pins
-    the port's ``random.Random`` call order and genome edits.  The port has
-    only the fused parameter search, so the JAX optimizer runs its fused
-    ``minimize_slots`` (``cache_prefix=True``) in place of the per-slot loop
-    that wrote the fixture; the trajectory is the same."""
+    the port's ``random.Random`` call order and genome edits.  The JAX
+    optimizer runs its fused ``minimize_slots`` (``cache_prefix=True``) in
+    place of the per-slot loop that wrote the fixture; the trajectory is the
+    same (``tests/test_torch_trajectories.py`` replays the loop itself)."""
 
     class JaxNumbers(JaxEvaluator):
         device = "cpu"
