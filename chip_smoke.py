@@ -95,10 +95,37 @@ with elapsed seconds:
 16. SPSA's routes from the same keys: the solves' first-generation gap and
    a calibrated last-layer call's gap after 1-8 steps printed (calibrated
    SPSA amplifies rounding 3-10x per step), and the same call at a fixed
-   rate over 8 steps held to 1e-5 * max|table|.
+   rate over 8 steps held to 1e-5 * max|table|;
+17. a gradient EVQE solve of config 4's instance on the default route
+   (``BatchedGradientDescent``, maxiter 10, learning rate 0.1; generations
+   4 -> 2, printed as ``reduced``): row 1 (selection), row 2 (prefix
+   states) and row 9 once (the final distribution) launch, no sweep or
+   sampler row does, the generation best does not rise, the eigenvalue
+   equals the plain version's energy of the best individual;
+18. one last-layer gradient ``minimize`` call at n=20 (P=16): its energies
+   against row 6 at the returned angles, the autograd gradient along a
+   seeded direction against row 1's central difference at eps = 1e-2, the
+   angles off the free coordinates bit-equal; then ``use_fold`` on and off
+   (maxiter 5): finite results, the fold applier's gradient against the
+   slot engine's to 5e-5 * max|table| and both against the slot engine's
+   float64 gradient to 1e-6 * max|table|, both times;
+19. QAOA on config 4's table with ``QAOAConfiguration``'s defaults, exact
+   and with 512 shots: the start energies and gradients against the CPU's,
+   a normalised state, the best bitstring's energy equal to the table's
+   (and the Hamiltonian's in float64), an eigenvalue at or below the best
+   start energy (the starts that rose are printed), no kernel;
+20. ADAPT-VQE on config 2's TFIM-12 (full pool, depth 8, 100 steps) and on
+   config 4's 20-qubit table (linear pool, depth 4, 50 steps): the first
+   screen against the CPU's, the first pick the screen's maximum, energies
+   that do not rise, no kernel;
+21. QNEAT on config 4's instance (population 16, 3 generations), pure and
+   with an NFT polish: row 1 in every generation, a best-so-far that does
+   not rise, the eigenvalue equal to rows 6 and 1's energy of the best
+   individual, the evaluation count the reference's formula.
 
 Phases 12-15 print their solve seconds, evaluations per second, the card's
-name and power limit, and their launches per kernel row.
+name and power limit, and their launches per kernel row; phases 17-21 also
+their peak device memory.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -153,6 +180,18 @@ SPSA4 = dict(SOLVE, generations=3, maxiter=30, calibration_steps=10)
 CONFIG1 = dict(qubits=8, population=10, maxiter=30, generations=2, seed=0)
 #: the host-stepped SPSA call with termination checkers (n=20)
 SPSA_CHECKED = dict(population=16, layers=3, maxiter=12, calibration_steps=4, seed=5)
+#: the gradient EVQE solve on config 4's instance, its 4 generations cut to 2
+GRADIENT4 = dict(SOLVE, generations=2, maxiter=10, learning_rate=0.1)
+#: the direct gradient minimize call at n=20 and its use_fold comparison
+GRADIENT_CALL = dict(population=16, layers=3, seed=9)
+USE_FOLD_CALL = dict(maxiter=5)
+#: QAOA's sampled run
+QAOA_SHOTS = 512
+#: ADAPT-VQE: (a) config 2's TFIM-12, (b) config 4's 20-qubit table
+ADAPT_TFIM = dict(pool="full", max_depth=8, optimizer_maxiter=100)
+ADAPT_JSSP = dict(pool="linear", max_depth=4, optimizer_maxiter=50)
+#: QNEAT on config 4's instance, pure and with an NFT polish
+QNEAT4 = dict(population=16, generations=3, seed=0, nft_maxiter=10)
 #: kernel -> its row in PERF.md's kernel table
 ROWS = {
     "energies_exact": 1, "population_states": 2, "nft_layer_sweep": 3, "population_probs": 4,
@@ -1897,6 +1936,407 @@ def phase_cobyla(card):
             "the COBYLA eigenvalue lies below the table's minimum")
 
 
+# ---------------------------------------------------------------------------
+# the gradient family, QAOA, ADAPT-VQE and QNEAT
+# ---------------------------------------------------------------------------
+
+
+class _LaunchClock(_GenerationClock):
+    """A never-terminating criterion that also records, at each generation's
+    end, the launch counts so far."""
+
+    def reset_state(self):
+        super().reset_state()
+        self.launches = []
+        self.bests = []
+
+    def check_termination(self, population_evaluation, best_individual, best_expectation_value):
+        self.launches.append(dict(launch_counts()))
+        self.bests.append(population_evaluation.best_expectation_value)
+        return super().check_termination(population_evaluation, best_individual,
+                                          best_expectation_value)
+
+
+def memory_gib() -> float:
+    import torch
+
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def reset_memory() -> None:
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_line(label, seconds, evals, card, launches) -> None:
+    """The new phases' line: seconds, evaluations per second (the solver's
+    own count), peak device memory, the card and launches per kernel row."""
+    say(f"phase {label}: {seconds:.3f} s, {evals} evaluations ({evals / seconds:.1f}/s), peak "
+        f"memory {memory_gib():.2f} GiB | {card} | launches per row {per_row(launches)}")
+
+
+def row_energies(packed, angles, table, n_qubits, route):
+    """Energies [P] of a packed population at ``angles`` by row 6 (``route``
+    "fold") or row 1 ("slot"), launched directly."""
+    from queasars_tpu_torch.sim import fold_kernels, slot_kernels
+    from queasars_tpu_torch.sim.evaluators import packed_tensors
+    from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
+
+    gt, ctrl, ang, lm = packed_tensors(packed, angles, DEVICE)
+    if route == "fold":
+        pipeline = build_fold_pipeline(gt, ctrl, ang, lm, n_qubits, absorb_diag=True)
+        return fold_kernels.energies_exact_folded(pipeline, table, n_qubits)
+    return slot_kernels.energies_exact(gt, ctrl, ang, lm, table, n_qubits)
+
+
+def phase_gradient_solve(card, hamiltonian, table):
+    """Config 4's instance under BatchedGradientDescent on the default
+    route (2 of 4 generations): the autograd objective carries the searches,
+    row 2 their prefix states, row 1 selection (the evaluator's exact
+    energies take the slot kernel on both routes, as the reference's
+    ``evaluate_packed`` does) and row 9 the final distribution."""
+    from queasars_tpu_torch.optim import BatchedGradientDescent, GradientDescentConfig
+
+    use_route("fold")
+    optimizer = BatchedGradientDescent(GradientDescentConfig(
+        maxiter=GRADIENT4["maxiter"], learning_rate=GRADIENT4["learning_rate"]))
+    clock = _LaunchClock()
+    reset_memory()
+    result, seconds, launches = timed_solve(baseline_solver(optimizer, GRADIENT4, clock),
+                                            hamiltonian)
+    phase_line(f"gradient EVQE solve (config 4, {hamiltonian.n_qubits} qubits, default route, "
+               f"{result.generations} generations, eigenvalue {result.eigenvalue:.6f})",
+               seconds, int(sum(result.circuit_evaluations)), card, launches)
+    say(f"  reduced: generations {SOLVE['generations']} -> {GRADIENT4['generations']} "
+        f"(population, pack_min_layers, seed and qubits uncut; no BASELINE config uses the "
+        f"gradient optimizer, maxiter {GRADIENT4['maxiter']}, learning rate "
+        f"{GRADIENT4['learning_rate']})")
+    say(f"  generation bests {[round(b, 6) for b in clock.bests]}")
+    require(result.generations == GRADIENT4["generations"], "the gradient solve stopped early")
+    require(launches["energies_exact"] > 0, "selection did not launch row 1")
+    require(launches["population_states"] > 0, "the prefix states did not launch row 2")
+    require(launches["population_probs_folded"] == 1,
+            "the final distribution did not launch row 9 once")
+    for name in ("nft_layer_sweep", "sampled_shot_indices", "nft_layer_sweep_folded",
+                 "sampled_shot_indices_folded", "grouped_shot_indices_folded"):
+        require(launches[name] == 0, f"kernel {name} ran in the gradient solve")
+    require(clock.bests[1] <= clock.bests[0],
+            "the gradient solve's best energy rose from generation 1 to 2")
+    tol = 1e-5 * float(table.abs().max())
+    plain = best_energy_plain(result, hamiltonian, table)
+    require(abs(plain - result.eigenvalue) <= tol,
+            "the gradient solve's eigenvalue disagrees with the plain version")
+
+
+def float64_gradient(objective, angles, table, n_qubits):
+    """d(sum of energies)/d theta at theta = 0 through the slot engine's
+    arithmetic in float64 (the yardstick of both float32 gradients)."""
+    import torch
+
+    from queasars_tpu_torch.sim.statevector import _apply_slot
+
+    gate_types, controls, layer_mask = objective.structure
+    mask = objective.coord_mask.double()
+    theta = torch.zeros_like(mask).requires_grad_(True)
+    shifted = angles.double().reshape(-1).index_add(
+        0, objective.flat, (theta * mask).reshape(-1)).reshape(angles.shape)
+    state = torch.zeros((angles.shape[0], 2, 1 << n_qubits), dtype=torch.float64,
+                        device=angles.device)
+    state[:, 0, 0] = 1.0
+    for layer, q in objective.slots:
+        state = _apply_slot(state, q, gate_types[:, layer, q], controls[:, layer, q],
+                            shifted[:, layer, q], layer_mask[:, layer], n_qubits)
+    ((state[:, 0] ** 2 + state[:, 1] ** 2) * table.double()).sum().backward()
+    return theta.grad
+
+
+def phase_gradient_minimize(card, hamiltonian, table):
+    """One last-layer ``minimize`` call at n=20 (P=16, the cache on): its
+    energies against row 6 at the returned angles, the autograd gradient
+    along a seeded direction against a central difference of row 1, and the
+    angles it must not move; then ``use_fold`` against the slot engine."""
+    import numpy as np
+    import torch
+
+    from queasars_tpu_torch.optim import BatchedGradientDescent, GradientDescentConfig
+    from queasars_tpu_torch.optim.gradient import _Objective
+    from queasars_tpu_torch.optim.objective import objective_operands
+    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator, packed_tensors
+
+    use_route("fold")
+    n = hamiltonian.n_qubits
+    scale = float(table.abs().max())
+    packed, coords, n_free = last_layer_problem(n, GRADIENT_CALL)
+    last = (packed.layer_mask.sum(axis=1) - 1).astype(np.int32)
+    active = n_free > 0
+    active[3] = False
+    evaluator = StatevectorExpectationEvaluator(hamiltonian, device=DEVICE)
+    reset_memory()
+    reset_launch_counts()
+    start = time.perf_counter()
+    angles, energies, nfev = BatchedGradientDescent(GradientDescentConfig(
+        maxiter=GRADIENT4["maxiter"], learning_rate=GRADIENT4["learning_rate"])).minimize(
+        evaluator, packed, coords, n_free, active, last_layer=last)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = launch_counts()
+    phase_line(f"gradient minimize (n={n}, P={packed.n_individuals}, last layer, "
+               f"maxiter {GRADIENT4['maxiter']})", seconds, nfev * int(active.sum()), card,
+               launches)
+    require(launches["population_states"] == 1, "the prefix states did not launch row 2 once")
+    fold = row_energies(packed, angles, table, n, "fold").cpu().numpy()
+    gap = float(np.abs(energies - fold).max())
+    keep = np.ones(packed.angles.shape, bool)
+    for i in np.nonzero(active)[0]:
+        for l, q, k in coords[i, : n_free[i]]:
+            keep[i, l, q, k] = False
+    say(f"  check: returned energies against row 6 at the returned angles {gap:.3e} "
+        f"(bar {1e-5 * scale:.3e}); angles off the free coordinates equal bit for bit: "
+        f"{np.array_equal(angles[keep], packed.angles[keep])}")
+    require(gap <= 1e-5 * scale, "the returned energies disagree with row 6")
+    require(np.array_equal(angles[keep], packed.angles[keep]),
+            "minimize moved a padded or inactive coordinate")
+
+    # the autograd gradient along a seeded direction d (|d|_1 = 1 per
+    # individual) against a central difference of row 1 at eps = 1e-2:
+    # truncation <= (eps^2 / 6) * 8 * max|table| (every coordinate's
+    # generator has norm <= 1), float32 energies' rounding <= 2e-6 * max|table|
+    # over 2 eps
+    eps = 1e-2
+    bar = (eps * eps / 6 * 8 + 2 * 2e-6 / (2 * eps)) * scale
+    gt, ctrl, ang, lm = packed_tensors(packed, device=DEVICE)
+    coords_t = torch.as_tensor(coords, dtype=torch.long, device=DEVICE)
+    mask = torch.as_tensor(np.arange(coords.shape[1])[None] < n_free[:, None],
+                           dtype=torch.float32, device=DEVICE)
+    objective = _Objective(objective_operands(evaluator), n, (gt, ctrl, lm), None, coords_t,
+                           mask, ang.shape)
+    grad = objective.gradient(ang, torch.zeros_like(mask), False)
+    direction = torch.as_tensor(np.random.default_rng(5).normal(size=mask.shape),
+                                dtype=torch.float32, device=DEVICE) * mask
+    direction = direction / direction.abs().sum(dim=1, keepdim=True).clamp(min=1e-30)
+    along = (grad * direction).sum(dim=1).double().cpu().numpy()
+    plus = row_energies(packed, objective.shifted(ang, eps * direction), table, n, "slot")
+    minus = row_energies(packed, objective.shifted(ang, -eps * direction), table, n, "slot")
+    central = ((plus.double() - minus.double()) / (2 * eps)).cpu().numpy()
+    worst = float(np.abs(along - central).max())
+    say(f"  check: autograd gradient . d against row 1's central difference (eps {eps}): "
+        f"largest gap {worst:.3e} (bar {bar:.3e} = (4 eps^2 / 3 + 2e-6 / eps) max|table|); "
+        f"individual 0: {along[0]:.6f} vs {central[0]:.6f}")
+    require(worst <= bar, "the autograd gradient disagrees with row 1's central difference")
+
+    # use_fold: the fold applier's gradient against the slot engine's at
+    # the same start angles (the JAX package's 5e-5 bar, scaled to this
+    # table), and the minimize call both ways
+    fold_grad = objective.gradient(ang, torch.zeros_like(mask), True)
+    grad_gap = float((fold_grad - grad).abs().max())
+    exact = float64_gradient(objective, ang, table, n)
+    errors = {name: float((g.double() - exact).abs().max()) / scale
+              for name, g in (("slot", grad), ("fold", fold_grad))}
+    say(f"  check: first-step gradients against the slot engine's in float64, / max|table|: "
+        f"slot {errors['slot']:.3e}, fold {errors['fold']:.3e} (bar 1e-6)")
+    require(max(errors.values()) <= 1e-6, "a float32 gradient disagrees with float64")
+    times = {}
+    results = {}
+    for use_fold in (True, False):
+        reset_memory()
+        start = time.perf_counter()
+        results[use_fold] = BatchedGradientDescent(GradientDescentConfig(
+            maxiter=USE_FOLD_CALL["maxiter"], learning_rate=GRADIENT4["learning_rate"],
+            use_fold=use_fold)).minimize(evaluator, packed, coords, n_free, n_free > 0,
+                                         last_layer=last)
+        torch.cuda.synchronize()
+        times[use_fold] = (time.perf_counter() - start, memory_gib())
+    finite = all(np.isfinite(r[1]).all() and np.isfinite(r[0]).all() for r in results.values())
+    say(f"phase use_fold (n={n}, P={packed.n_individuals}, last layer, maxiter "
+        f"{USE_FOLD_CALL['maxiter']}): fold {times[True][0]:.3f} s (peak {times[True][1]:.2f} GiB), "
+        f"slot {times[False][0]:.3f} s (peak {times[False][1]:.2f} GiB) | {card}; first-step "
+        f"gradients fold vs slot {grad_gap:.3e} (bar {5e-5 * scale:.3e}); finite {finite}; "
+        f"energies fold {np.round(results[True][1][:4], 4)} slot {np.round(results[False][1][:4], 4)}")
+    require(finite, "a use_fold result is not finite")
+    require(grad_gap <= 5e-5 * scale, "the fold gradient disagrees with the slot engine's")
+
+
+def phase_qaoa(card, hamiltonian):
+    """QAOA on config 4's table with QAOAConfiguration's defaults, exact
+    and with 512 shots."""
+    import numpy as np
+    import torch
+
+    from queasars_tpu_torch.paulis.diagonal import diagonal_energy_table_device
+    from queasars_tpu_torch.sim.qaoa import qaoa_energies_batch
+    from queasars_tpu_torch.solver import QAOAConfiguration, QAOAMinimumEigensolver
+    from queasars_tpu_torch.solver.qaoa import start_schedules
+
+    n = hamiltonian.n_qubits
+    default = QAOAConfiguration()
+    p = default.reps
+    say(f"  QAOA: no BASELINE config runs QAOA; config 4's {n}-qubit table under "
+        f"QAOAConfiguration's defaults (reps {p}, {default.n_starts} starts, {default.maxiter} "
+        f"steps), uncut")
+
+    card_table = diagonal_energy_table_device(hamiltonian, device=DEVICE)
+
+    def starts(device):
+        table = card_table.to(device)
+        scale = torch.clamp(table.abs().max(), min=1e-6)
+        g0, b0, _ = start_schedules(default.seed, default.n_starts, p, scale)
+        params = torch.cat([g0, b0], dim=1).requires_grad_(True)
+        energies = qaoa_energies_batch(table, params[:, :p], params[:, p:], n)
+        energies.sum().backward()
+        return table, energies.detach().double().cpu().numpy(), params.grad.double().cpu().numpy()
+
+    table, e_card, g_card = starts(DEVICE)
+    _, e_host, g_host = starts("cpu")
+    scale = float(table.abs().max())
+    e_gap = float(np.abs(e_card - e_host).max())
+    g_gap = float(np.abs(g_card - g_host).max() / np.abs(g_host).max())
+    say(f"  check: start energies card vs CPU {e_gap:.3e} (bar {1e-5 * scale:.3e}), gradients "
+        f"{g_gap:.3e} of the largest (bar 1e-4)")
+    require(e_gap <= 1e-5 * scale, "QAOA start energies disagree with the CPU")
+    require(g_gap <= 1e-4, "QAOA start gradients disagree with the CPU")
+    coeffs, z_masks = hamiltonian.coeffs.real, hamiltonian.z_masks_lo64()
+    for shots in (None, QAOA_SHOTS):
+        reset_memory()
+        reset_launch_counts()
+        start = time.perf_counter()
+        result = QAOAMinimumEigensolver(QAOAConfiguration(shots=shots, device=DEVICE)
+                                        ).compute_minimum_eigenvalue(hamiltonian)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        launches = launch_counts()
+        phase_line(f"QAOA ({'exact' if shots is None else f'{shots} shots'}, n={n}, eigenvalue "
+                   f"{result.eigenvalue:.6f}, best bitstring energy "
+                   f"{result.best_bitstring_energy:.6f})", seconds, result.circuit_evaluations,
+                   card, launches)
+        norm = float((result.optimal_state.astype(np.float64) ** 2).sum())
+        exact = float(table[result.best_bitstring].double())
+        parity = np.array([bin(int(z) & result.best_bitstring).count("1") & 1 for z in z_masks])
+        host = float(np.sum(coeffs * (1.0 - 2.0 * parity)))
+        final = np.asarray(result.start_energies)
+        say(f"  check: |psi|^2 {norm:.9f}; best bitstring energy {result.best_bitstring_energy} "
+            f"vs table {exact} vs host float64 {host:.6f}; starts' energies before "
+            f"{np.round(e_card, 4)} after {np.round(final, 4)}")
+        require(not any(launches.values()), "QAOA launched a kernel")
+        require(abs(norm - 1.0) <= 1e-5, "the QAOA state is not normalised")
+        require(result.best_bitstring_energy == exact,
+                "the best bitstring's energy is not the table's")
+        require(abs(host - exact) <= 1e-5 * scale, "the table disagrees with the Hamiltonian")
+        # at the defaults' learning rate a gamma step (0.05) is hundreds of
+        # times the starts' gamma range (1 / max|table|), so single starts
+        # can end above where they began, in the JAX package as here; the
+        # solve's answer, the best start, must not
+        rose = int(np.sum(final > e_card + 1e-6 * scale))
+        say(f"  starts that ended above their start energy (record): {rose} of {len(final)}")
+        require(result.eigenvalue <= e_card.min() + 1e-6 * scale,
+                "the QAOA eigenvalue lies above the best start energy")
+
+
+def phase_adapt(card, label, operator, settings, scale):
+    """One ADAPT-VQE run on the card: the first screen against the CPU's,
+    the picks against the screen maxima, energies that do not rise."""
+    import numpy as np
+    import torch
+
+    from queasars_tpu_torch.paulis import diagonal_energy_table
+    from queasars_tpu_torch.sim.expectation import pauli_terms
+    from queasars_tpu_torch.solver import AdaptVQEConfiguration, AdaptVQEMinimumEigensolver
+    from queasars_tpu_torch.solver.adapt_vqe import _build_pool, screen_pool
+
+    n = operator.n_qubits
+    diagonal = operator.is_diagonal
+    pool = _build_pool(n, settings["pool"])
+    plus = np.stack([np.full(1 << n, np.float32(2.0 ** (-n / 2.0))),
+                     np.zeros(1 << n, np.float32)]).astype(np.float32)
+
+    def first_screen(device):
+        operands = (diagonal_energy_table(operator, dtype=torch.float32, device=device)
+                    if diagonal else pauli_terms(operator, device))
+        return screen_pool(torch.as_tensor(plus, device=device), *pool[:3], operands, n, diagonal)
+
+    g_card, g_host = first_screen(DEVICE), first_screen("cpu")
+    screen_gap = float(np.abs(g_card - g_host).max() / np.abs(g_host).max())
+    reset_memory()
+    reset_launch_counts()
+    start = time.perf_counter()
+    result = AdaptVQEMinimumEigensolver(AdaptVQEConfiguration(device=DEVICE, **settings)
+                                        ).compute_minimum_eigenvalue(operator)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = launch_counts()
+    energies = [r.energy for r in result.iterations]
+    phase_line(f"ADAPT-VQE {label} ({len(pool[3])} candidates, depth {len(energies)}, "
+               f"eigenvalue {result.eigenvalue:.6f})", seconds, result.n_circuit_evaluations,
+               card, launches)
+    say(f"  picks {[(r.candidate, round(r.gradient, 5)) for r in result.iterations]}; energies "
+        f"{[round(e, 6) for e in energies]}; first screen card vs CPU {screen_gap:.3e} of the "
+        f"largest (bar 1e-4); first pick |g| {abs(result.iterations[0].gradient):.6f} vs screen "
+        f"max {np.abs(g_card).max():.6f}")
+    require(len(energies) >= 1, f"ADAPT {label} grew nothing")
+    require(screen_gap <= 1e-4, f"ADAPT {label}'s first screen disagrees with the CPU")
+    require(abs(abs(result.iterations[0].gradient) - np.abs(g_card).max())
+            <= 1e-6 * np.abs(g_card).max(), f"ADAPT {label}'s first pick is not the screen maximum")
+    for before, after in zip(energies, energies[1:]):
+        require(after <= before + 1e-6 * scale, f"ADAPT {label}'s energy rose")
+    require(not any(launches.values()), f"ADAPT {label} launched a kernel")
+
+
+def phase_qneat(card, hamiltonian, table):
+    """QNEAT on config 4's instance (population 16, 3 generations), pure and
+    with an NFT polish: row 1 evaluates every generation (the evaluator's
+    exact energies take the slot kernel on both routes); the eigenvalue is
+    the best individual's energy by rows 6 and 1."""
+    import numpy as np
+
+    from queasars_tpu_torch.genome import PackedPopulation
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.solver import (
+        ConfiguredEstimator,
+        QNEATMinimumEigensolver,
+        QNEATMinimumEigensolverConfiguration,
+    )
+
+    use_route("fold")
+    n = hamiltonian.n_qubits
+    tol = 1e-5 * float(table.abs().max())
+    for polish in (None, BatchedNFT(NFTConfig(maxiter=QNEAT4["nft_maxiter"]))):
+        clock = _LaunchClock()
+        reset_memory()
+        result, seconds, launches = timed_solve(QNEATMinimumEigensolver(
+            QNEATMinimumEigensolverConfiguration(
+                configured_estimator=ConfiguredEstimator(), configured_sampler=None,
+                max_generations=QNEAT4["generations"], max_circuit_evaluations=None,
+                termination_criterion=clock, random_seed=QNEAT4["seed"],
+                population_size=QNEAT4["population"], optimizer=polish,
+                pack_min_layers=SOLVE["pack_min_layers"], device=DEVICE)), hamiltonian)
+        kind = "pure" if polish is None else f"NFT polish maxiter {QNEAT4['nft_maxiter']}"
+        evals = int(sum(result.circuit_evaluations))
+        phase_line(f"QNEAT ({kind}, config 4's {n} qubits, {result.generations} generations, "
+                   f"eigenvalue {result.eigenvalue:.6f})", seconds, evals, card, launches)
+        say(f"  reduced: no BASELINE config runs QNEAT; population {QNEAT4['population']}, "
+            f"{QNEAT4['generations']} generations, config 4's instance uncut")
+        per_generation = [c["energies_exact"] for c in clock.launches]
+        bests = np.minimum.accumulate(clock.bests)
+        packed = PackedPopulation.pack([result.best_individual])
+        by_row = {route: float(row_energies(packed, None, table, n, route)[0])
+                  for route in ("fold", "slot")}
+        nfev = 0 if polish is None else polish.config.n_circuit_evaluations()
+        formula = QNEAT4["generations"] * QNEAT4["population"] * (1 + nfev)
+        say(f"  check: row 1 launches by generation {per_generation}; best so far "
+            f"{[round(b, 6) for b in bests]}; eigenvalue vs row 6 {by_row['fold']:.6f} and row 1 "
+            f"{by_row['slot']:.6f} (bar {tol:.3e}); evaluations {evals} vs formula {formula}")
+        require(result.generations == QNEAT4["generations"], "the QNEAT solve stopped early")
+        require(all(b > a for a, b in zip([0] + per_generation, per_generation)),
+                "a QNEAT generation did not launch row 1")
+        require(np.all(np.diff(bests) <= 0) and result.eigenvalue == bests[-1],
+                "QNEAT's best-so-far energy rose")
+        for route, value in by_row.items():
+            require(abs(value - result.eigenvalue) <= tol,
+                    f"QNEAT's eigenvalue disagrees with the {route} kernel")
+        require(evals == formula, "QNEAT's evaluation count is not the reference's formula")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     try:
@@ -1955,6 +2395,17 @@ def main() -> int:
         phase_spsa_checkers(card, hamiltonian)
         phase_cobyla(card)
         phase_spsa_routes_agree(spsa, hamiltonian, table)
+        phase_gradient_solve(card, hamiltonian, table)
+        phase_gradient_minimize(card, hamiltonian, table)
+        phase_qaoa(card, hamiltonian)
+        from queasars_tpu_torch.problems.spin_chains import transverse_field_ising
+
+        tfim12 = transverse_field_ising(CONFIG2["qubits"], **TFIM)
+        phase_adapt(card, "(a) config 2's TFIM-12", tfim12, ADAPT_TFIM,
+                    float(abs(tfim12.coeffs).sum()))
+        phase_adapt(card, "(b) config 4's JSSP-20", hamiltonian, ADAPT_JSSP,
+                    float(table.abs().max()))
+        phase_qneat(card, hamiltonian, table)
     except Failure as failure:
         say(f"FAILED: {failure}")
         return 1

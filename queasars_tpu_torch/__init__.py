@@ -6,10 +6,12 @@ kernels written by hand for Hopper (``csrc/``), and on the CPU through the
 kernels' plain PyTorch versions.  It imports ``torch``, numpy and the
 standard library only.
 
-Ported so far: the exact-estimator EVQE solve of diagonal (JSSP)
-Hamiltonians on the JAX package's two kernel routes, the kron-fold route
-(the default; four fold kernels) and the slot route (``QUEASARS_MXU=0``;
-four slot kernels) — see ROADMAP.md for what follows.
+Ported so far: every solver of the JAX package on one device -- EVQE and
+MoG-VQE (exact or shot-sampled, diagonal or general operators) on the JAX
+package's two kernel routes, the kron-fold route (the default) and the slot
+route (``QUEASARS_MXU=0``); NFT, SPSA, COBYLA and gradient descent; QNEAT,
+ADAPT-VQE and QAOA; the JSSP, spin-chain and QUBO-family problem encoders.
+ROADMAP.md lists what follows (persistence, distribution, the CLI).
 """
 
 __version__ = "0.1.0"

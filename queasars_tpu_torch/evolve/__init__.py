@@ -22,6 +22,12 @@ from queasars_tpu_torch.evolve.multiobjective import (
     crowding_distance,
     pareto_front,
 )
+from queasars_tpu_torch.evolve.qneat import (
+    QNEATAddGate,
+    QNEATAngleMutation,
+    QNEATParameterPolish,
+    QNEATSpeciationSelection,
+)
 from queasars_tpu_torch.evolve.speciation import EVQESpeciation
 from queasars_tpu_torch.evolve.selection import EVQESelection, EVQESelectionException
 
@@ -34,6 +40,10 @@ __all__ = [
     "EVQETopologicalSearch",
     "EVQELayerRemoval",
     "EVQESpeciation",
+    "QNEATSpeciationSelection",
+    "QNEATAngleMutation",
+    "QNEATAddGate",
+    "QNEATParameterPolish",
     "MultiObjectiveEVQESelection",
     "non_dominated_sort",
     "crowding_distance",

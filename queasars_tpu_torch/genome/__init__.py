@@ -24,6 +24,7 @@ from queasars_tpu_torch.genome.parameter_order import (
     parameter_order,
     set_parameter_order,
 )
+from queasars_tpu_torch.genome.qneat import QNEATGene, QNEATIndividual, QNEATPopulation
 
 __all__ = [
     "get_parameter_order",
@@ -42,4 +43,7 @@ __all__ = [
     "EVQEIndividualException",
     "EVQEPopulation",
     "PackedPopulation",
+    "QNEATGene",
+    "QNEATIndividual",
+    "QNEATPopulation",
 ]

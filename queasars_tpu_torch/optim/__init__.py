@@ -1,10 +1,11 @@
-"""Batched parameter optimizers over the fold and slot kernels: NFT and
-SPSA (with its termination checker) in population lock-step, and COBYLA
-per individual."""
+"""Batched parameter optimizers: NFT and SPSA (with its termination checker)
+in population lock-step over the fold and slot kernels, Adam/SGD through
+autograd of the plain engines, and COBYLA per individual."""
 
 from queasars_tpu_torch.optim.nft import BatchedNFT, NFTConfig
 from queasars_tpu_torch.optim.spsa import BatchedSPSA, SPSAConfig
 from queasars_tpu_torch.optim.cobyla import CobylaConfig, ScipyCobyla
+from queasars_tpu_torch.optim.gradient import BatchedGradientDescent, GradientDescentConfig
 from queasars_tpu_torch.optim.spsa_termination import SPSATerminationChecker
 
 __all__ = [
@@ -14,5 +15,7 @@ __all__ = [
     "SPSAConfig",
     "CobylaConfig",
     "ScipyCobyla",
+    "BatchedGradientDescent",
+    "GradientDescentConfig",
     "SPSATerminationChecker",
 ]

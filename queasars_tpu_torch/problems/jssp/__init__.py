@@ -1,5 +1,6 @@
 """Job Shop Scheduling problem domain: data model, domain-wall Hamiltonian
-encoder and random instance generation (port of queasars_tpu/problems/jssp/).
+encoder, random instance generation and the exact branch-and-bound oracle
+(port of queasars_tpu/problems/jssp/).
 """
 
 from queasars_tpu_torch.problems.jssp.problem_instances import (
@@ -19,6 +20,7 @@ from queasars_tpu_torch.problems.jssp.encoder import JSSPDomainWallHamiltonianEn
 from queasars_tpu_torch.problems.jssp.random_instances import (
     random_job_shop_scheduling_instance,
 )
+from queasars_tpu_torch.problems.jssp.exact_solver import solve_jssp_exact
 
 __all__ = [
     "Machine",
@@ -34,4 +36,5 @@ __all__ = [
     "DomainWallVariable",
     "JSSPDomainWallHamiltonianEncoder",
     "random_job_shop_scheduling_instance",
+    "solve_jssp_exact",
 ]

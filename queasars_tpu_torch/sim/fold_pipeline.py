@@ -129,18 +129,27 @@ def slot_factors(gate_type: torch.Tensor, angles: torch.Tensor):
     mz = cos_half * sin_s
     my = sin_half * torch.cos(a)
     mx = -sin_half * torch.sin(a)
+    # the square roots are guarded for autograd (the gradient optimizer
+    # differentiates through the fold): at degenerate angles -- a freshly
+    # grown CROT's zeros -- the radicands are exact zeros, whose sqrt
+    # cotangent is 0 * inf = NaN even in torch.where's dead branch.  The
+    # guarded forms evaluate to the same floats (sqrt(0) = 0), as the
+    # reference's do (fold_pipeline.py:146-159)
     xy_sq = mx * mx + my * my
     xy_zero = xy_sq == 0.0
-    nxy = torch.sqrt(xy_sq)
-    sin_d2 = torch.sqrt(nxy * nxy + mz * mz)
+    one = torch.ones_like(cos_half)
+    nxy = torch.where(xy_zero, zero, torch.sqrt(torch.where(xy_zero, one, xy_sq)))
+    s_sq = nxy * nxy + mz * mz
+    s_zero = s_sq == 0.0
+    sin_d2 = torch.where(s_zero, zero, torch.sqrt(torch.where(s_zero, one, s_sq)))
     d_half = torch.atan2(sin_d2, cos_d2)
     ph0, ph1 = s - d_half, s + d_half
     ph = _mat(torch.cos(ph0), torch.sin(ph0), torch.cos(ph1), torch.sin(ph1))
 
     # V rotates z onto n: [[cos(b/2), -sin(b/2) e^{-ic}], [sin(b/2) e^{ic}, cos(b/2)]]
-    mz_b = torch.where(xy_zero & (mz == 0.0), torch.ones_like(mz), mz)
+    mz_b = torch.where(xy_zero & (mz == 0.0), one, mz)
     b_half = torch.atan2(nxy, mz_b) * 0.5
-    c = torch.atan2(torch.where(xy_zero, zero, my), torch.where(xy_zero, torch.ones_like(mx), mx))
+    c = torch.atan2(torch.where(xy_zero, zero, my), torch.where(xy_zero, one, mx))
     cos_b, sin_b = torch.cos(b_half), torch.sin(b_half)
     cos_c, sin_c = torch.cos(c), torch.sin(c)
     v_re = _mat(cos_b, -sin_b * cos_c, sin_b * cos_c, cos_b)
@@ -382,10 +391,42 @@ def simulate_circuits_folded(
     gate_types, controls, angles, layer_mask, n_qubits: int, initial_state=None
 ) -> torch.Tensor:
     """[P, L, n] genomes -> [P, 2, 2^n] states through the kron-fold
-    transform (plain applier); ``initial_state`` shared [2, 2^n] or
-    per-individual [P, 2, 2^n]."""
+    transform, differentiable (the gradient optimizer's ``use_fold``
+    objective); ``initial_state`` shared [2, 2^n] or per-individual
+    [P, 2, 2^n].
+
+    Each 2x2 factor applies with the slot engine's real pair arithmetic
+    (``statevector.apply_u3_pairs``), so autograd sums each factor's
+    gradient over its 2^(n-1) pairs with torch's reductions.  Through
+    :func:`apply_fold_pipeline_plain`'s complex matmuls that sum is a
+    GEMM's float32 accumulation over the pairs, which on the card left
+    errors of 3e-4 * max|table| in gradients that are exactly zero (a final
+    phase under a diagonal operator; n=20, P=16)."""
+    from queasars_tpu_torch.sim.statevector import apply_u3_pairs
+
     pipeline = build_fold_pipeline(gate_types, controls, angles, layer_mask, n_qubits)
-    return apply_fold_pipeline_plain(pipeline, n_qubits, initial_state)
+    factors = pipeline.factors
+    pop, n_kron = factors.shape[0], factors.shape[1]
+    dim = 1 << n_qubits
+    device = factors.device
+    if initial_state is None:
+        state = torch.zeros((pop, 2, dim), dtype=torch.float32, device=device)
+        state[:, 0, 0] = 1.0
+    else:
+        state = initial_state.float().expand(pop, 2, dim).clone()
+    on = torch.ones(pop, dtype=torch.bool, device=device)
+    basis = torch.arange(dim, device=device)
+    for k in range(n_kron):
+        for q in range(n_qubits):
+            f = factors[:, k, q]  # [P, re/im, 2, 2]
+            entries = tuple((f[:, 0, a, b], f[:, 1, a, b]) for a, b in ((0, 0), (0, 1), (1, 0), (1, 1)))
+            state = apply_u3_pairs(state, q, entries, on, ~on, on.long(), n_qubits)
+        if k < n_kron - 1:
+            weights = _phase_weights(pipeline.diag_ctrl[:, k], pipeline.diag_tgt[:, k],
+                                     pipeline.diag_phase[:, k], pipeline.diag_count[:, k], basis)
+            re, im, wr, wi = state[:, 0], state[:, 1], weights.real, weights.imag
+            state = torch.stack([re * wr - im * wi, re * wi + im * wr], dim=1)
+    return state
 
 
 def _kron_chain(mats: torch.Tensor) -> torch.Tensor:

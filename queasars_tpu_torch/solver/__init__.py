@@ -1,5 +1,5 @@
-"""Solvers: the generic evolving-ansatz driver, the EVQE facade and
-MoG-VQE."""
+"""Solvers: the generic evolving-ansatz driver, the EVQE, MoG-VQE and QNEAT
+facades, ADAPT-VQE and QAOA."""
 
 from queasars_tpu_torch.solver.termination_criteria import (
     BestIndividualChangeTolerance,
@@ -15,10 +15,23 @@ from queasars_tpu_torch.solver.driver import (
     EvolvingAnsatzMinimumEigensolver,
     EvolvingAnsatzMinimumEigensolverConfiguration,
 )
+from queasars_tpu_torch.solver.adapt_vqe import (
+    AdaptVQEConfiguration,
+    AdaptVQEMinimumEigensolver,
+    AdaptVQEResult,
+)
 from queasars_tpu_torch.solver.evqe import EVQEMinimumEigensolver, EVQEMinimumEigensolverConfiguration
 from queasars_tpu_torch.solver.mog_vqe import MoGVQEMinimumEigensolver, result_pareto_front
+from queasars_tpu_torch.solver.qaoa import QAOAConfiguration, QAOAMinimumEigensolver, QAOAResult
+from queasars_tpu_torch.solver.qneat import (
+    QNEATMinimumEigensolver,
+    QNEATMinimumEigensolverConfiguration,
+)
 
 __all__ = [
+    "AdaptVQEConfiguration",
+    "AdaptVQEMinimumEigensolver",
+    "AdaptVQEResult",
     "BestIndividualChangeTolerance",
     "BestIndividualExpectationValueThreshold",
     "BestIndividualRelativeChangeTolerance",
@@ -33,5 +46,10 @@ __all__ = [
     "EVQEMinimumEigensolver",
     "EVQEMinimumEigensolverConfiguration",
     "MoGVQEMinimumEigensolver",
+    "QAOAConfiguration",
+    "QAOAMinimumEigensolver",
+    "QAOAResult",
+    "QNEATMinimumEigensolver",
+    "QNEATMinimumEigensolverConfiguration",
     "result_pareto_front",
 ]

@@ -1010,3 +1010,127 @@ def test_slot_loop_on_the_card_matches_the_cpu(cuda_device):
         cpu_eval.evaluate_individuals(list(cpu.individuals)),
         atol=1e-4 * float(np.abs(op.coeffs).sum()), rtol=0,
     )
+
+
+def _gradient_run(device, path):
+    """One gradient search at n=14 (P=6) on ``device``: full circuits,
+    the last-layer prefix path or the fused slot search; returns (result,
+    evaluator, packed)."""
+    from queasars_tpu_torch.optim import BatchedGradientDescent, GradientDescentConfig
+    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+
+    packed = _spsa_problem()
+    pop = packed.n_individuals
+    real = packed.layer_mask.sum(axis=1)
+    slots = 2
+    coords = np.zeros((pop, slots, 3 * packed.n_qubits, 3), np.int32)
+    n_free = np.zeros((pop, slots), np.int32)
+    slot_layers = np.full((pop, slots), packed.max_layers, np.int32)
+    for i in range(pop):
+        for s in range(min(slots, real[i])):
+            layer = real[i] - 1 - s
+            c = packed.layer_param_coordinates(i, layer)
+            coords[i, s, : len(c)], n_free[i, s], slot_layers[i, s] = c, len(c), layer
+    evaluator = StatevectorExpectationEvaluator(_diagonal_operator(14, 12, seed=5), device=device)
+    optimizer = BatchedGradientDescent(GradientDescentConfig(
+        maxiter=6, learning_rate=0.05, cache_prefix=path != "full"))
+    if path == "slots":
+        out = optimizer.minimize_slots(evaluator, packed, coords, n_free, n_free > 0, slot_layers)
+    else:
+        last = (real - 1).astype(np.int32) if path == "prefix" else None
+        out = optimizer.minimize(evaluator, packed, coords[:, 0], n_free[:, 0], n_free[:, 0] > 0,
+                                 last_layer=last)
+    return out, evaluator, packed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["full", "prefix", "slots"])
+def test_gradient_descent_on_the_card_matches_the_cpu(cuda_device, path):
+    """The autograd objective on the card against the same search on the
+    CPU at n=14: energies to 1e-5 * max|table|, also re-evaluated at both
+    angle sets, equal evaluation counts."""
+    card, _, packed = _gradient_run("cuda", path)
+    cpu, cpu_eval, _ = _gradient_run("cpu", path)
+    tol = 1e-5 * float(cpu_eval._table.abs().max())
+    assert card[2] == cpu[2] == 12
+    np.testing.assert_allclose(card[1], cpu[1], atol=tol, rtol=0)
+    np.testing.assert_allclose(cpu_eval.evaluate_packed(packed, angles=card[0]),
+                               cpu_eval.evaluate_packed(packed, angles=cpu[0]), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_qaoa_on_the_card_matches_the_cpu(cuda_device):
+    """A 15-step QAOA solve at n=14 on the card against the CPU: the
+    schedules to 1e-5, the energies to 1e-5 * max|table|, the same best
+    bitstring."""
+    from queasars_tpu_torch.solver import QAOAConfiguration, QAOAMinimumEigensolver
+
+    op = _diagonal_operator(14, 12, seed=5)
+    card, cpu = (QAOAMinimumEigensolver(QAOAConfiguration(
+        n_starts=4, maxiter=15, device=device)).compute_minimum_eigenvalue(op)
+        for device in ("cuda", "cpu"))
+    scale = float(np.abs(op.coeffs).sum())
+    np.testing.assert_allclose(card.start_energies, cpu.start_energies, atol=1e-5 * scale)
+    np.testing.assert_allclose(card.optimal_gammas, cpu.optimal_gammas, rtol=1e-5)
+    np.testing.assert_allclose(card.optimal_betas, cpu.optimal_betas, atol=1e-5)
+    assert card.best_bitstring == cpu.best_bitstring
+    np.testing.assert_allclose(card.optimal_state, cpu.optimal_state, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_adapt_vqe_on_the_card_matches_the_cpu(cuda_device):
+    """ADAPT-VQE on a 12-qubit Pauli sum with random coefficients (so no
+    two candidates tie, as a symmetric chain's would; linear pool, depth 3,
+    20 steps) on the card against the CPU: the same picks, gradients to
+    1e-5 relative, energies to 1e-5 * sum|c|."""
+    from queasars_tpu_torch.paulis import PauliSum
+    from queasars_tpu_torch.solver import AdaptVQEConfiguration, AdaptVQEMinimumEigensolver
+
+    rng = np.random.default_rng(12)
+    op = PauliSum.sum([PauliSum.from_label("".join(rng.choice(list("IXYZ"), 12)), float(c))
+                       for c in rng.normal(size=20)])
+    card, cpu = (AdaptVQEMinimumEigensolver(AdaptVQEConfiguration(
+        max_depth=3, optimizer_maxiter=20, pool="linear", device=device)
+    ).compute_minimum_eigenvalue(op) for device in ("cuda", "cpu"))
+    tol = 1e-5 * float(np.abs(op.coeffs).sum())
+    assert [r.candidate for r in card.iterations] == [r.candidate for r in cpu.iterations]
+    for mine, theirs in zip(card.iterations, cpu.iterations):
+        assert abs(mine.gradient - theirs.gradient) <= 1e-5 * abs(theirs.gradient)
+        assert abs(mine.energy - theirs.energy) <= tol
+    assert card.n_circuit_evaluations == cpu.n_circuit_evaluations
+
+
+@pytest.mark.cuda
+def test_autograd_gradients_on_the_card_match_float64(cuda_device):
+    """At n=18 (P=8, a table of JSSP-like magnitude) both differentiable
+    engines' float32 gradients lie within 1e-6 * max|table| of the slot
+    engine's float64 gradient on the card; a fold applier whose factor
+    gradients come from complex matmuls missed this by 300x at n=20."""
+    from queasars_tpu_torch.sim.fold_pipeline import simulate_circuits_folded
+    from queasars_tpu_torch.sim.statevector import _apply_slot, simulate_circuits
+
+    n, pop = 18, 8
+    packed = _spsa_problem(n_qubits=n, pop=pop)
+    gt, ctrl, ang, lm = packed_tensors(packed, device="cuda")
+    table = torch.as_tensor(np.random.default_rng(3).normal(size=1 << n) * 1e4,
+                            dtype=torch.float32, device="cuda")
+
+    def gradient(simulate, dtype):
+        leaf = ang.to(dtype).clone().requires_grad_(True)
+        if dtype == torch.float64:
+            init = torch.zeros((pop, 2, 1 << n), dtype=dtype, device="cuda")
+            init[:, 0, 0] = 1.0
+            state = init
+            for layer in range(packed.max_layers):
+                for q in range(n):
+                    state = _apply_slot(state, q, gt[:, layer, q], ctrl[:, layer, q],
+                                        leaf[:, layer, q], lm[:, layer], n)
+        else:
+            state = simulate(gt, ctrl, leaf, lm, n)
+        ((state[:, 0] ** 2 + state[:, 1] ** 2) * table.to(dtype)).sum().backward()
+        return leaf.grad.double()
+
+    exact = gradient(None, torch.float64)
+    scale = float(table.abs().max())
+    for simulate in (simulate_circuits, simulate_circuits_folded):
+        assert float((gradient(simulate, torch.float32) - exact).abs().max()) <= 1e-6 * scale

@@ -1,6 +1,7 @@
 """The port reaches neither JAX nor the JAX package: in a fresh process with
 ``jax`` and ``queasars_tpu`` blocked, every module of ``queasars_tpu_torch``
-(the optimizers, MoG-VQE and multi-objective selection among them) and
+(the optimizers, the gradient optimizer, MoG-VQE, QAOA, ADAPT-VQE, QNEAT,
+the QUBO encoders and the exact JSSP oracle among them) and
 ``chip_smoke`` (not run) import, and ``chip_smoke`` refuses to run
 without a CUDA device."""
 
@@ -22,7 +23,9 @@ import queasars_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(queasars_tpu_torch.__path__, "queasars_tpu_torch.")]
 required = ["queasars_tpu_torch." + m for m in (
     "optim.spsa", "optim.spsa_termination", "optim.cobyla", "evolve.multiobjective",
-    "solver.mog_vqe")]
+    "solver.mog_vqe", "optim.gradient", "sim.qaoa", "solver.qaoa", "solver.adapt_vqe",
+    "genome.qneat", "evolve.qneat", "solver.qneat", "problems.qubo",
+    "problems.jssp.exact_solver", "utils.bitstring_evaluation")]
 assert set(required) <= set(names), sorted(set(required) - set(names))
 for name in names:
     importlib.import_module(name)

@@ -1,0 +1,212 @@
+"""The port's QNEAT genome, operators and solver against the JAX package's
+(CPU).
+
+Genome operations (compatibility distance, crossover, lowering and the
+angle round trip) and the three host operators are compared field for field
+from the same seeds, which holds the ``random.Random`` call order exactly.
+Whole 3-generation solves at n=5 are compared generation by generation: on
+the port's own numerics (the lowered structures equal, the energies to
+1e-5 * sum|c|, the evaluation counts equal; with the NFT polish the
+first generation, see below), and replayed with the JAX
+package's evaluator and optimizer doing the numbers, where every
+generation's energies must equal the JAX solve's bit for bit (a ranking
+that hinges on float rounding then decides alike).
+"""
+
+from __future__ import annotations
+
+from random import Random
+
+import numpy as np
+import pytest
+
+from queasars_tpu.evolve.base import OperatorContext as JaxContext
+from queasars_tpu.evolve.qneat import QNEATAddGate as JaxAddGate
+from queasars_tpu.evolve.qneat import QNEATAngleMutation as JaxAngleMutation
+from queasars_tpu.evolve.qneat import QNEATSpeciationSelection as JaxSelection
+from queasars_tpu.genome.qneat import QNEATGene as JaxGene
+from queasars_tpu.genome.qneat import QNEATIndividual as JaxIndividual
+from queasars_tpu.genome.qneat import QNEATPopulation as JaxPopulation
+from queasars_tpu.optim import BatchedNFT as JaxNFT
+from queasars_tpu.optim import NFTConfig as JaxNFTConfig
+from queasars_tpu.sim.evaluators import StatevectorExpectationEvaluator as JaxEvaluator
+from queasars_tpu.solver import ConfiguredEstimator as JaxEstimator
+from queasars_tpu.solver import QNEATMinimumEigensolver as JaxSolver
+from queasars_tpu.solver import QNEATMinimumEigensolverConfiguration as JaxConfiguration
+from queasars_tpu_torch.evolve import (
+    OperatorContext,
+    QNEATAddGate,
+    QNEATAngleMutation,
+    QNEATSpeciationSelection,
+)
+from queasars_tpu_torch.genome import QNEATGene, QNEATIndividual, QNEATPopulation
+from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+from queasars_tpu_torch.solver import (
+    ConfiguredEstimator,
+    QNEATMinimumEigensolver,
+    QNEATMinimumEigensolverConfiguration,
+)
+from tests.test_torch_optim import _operators
+
+N = 5
+
+
+def _genome(module_gene, module_individual, n, extra, seed):
+    rng = Random(seed)
+    individual = module_individual.minimal(n, True, rng)
+    for innovation in range(n, n + extra):
+        if rng.random() < 0.5:
+            target, control = rng.sample(range(n), 2)
+        else:
+            target, control = rng.randrange(n), -1
+        individual = individual.with_gene(
+            module_gene(innovation=innovation, target=target, control=control),
+            [rng.uniform(0, 6.28) for _ in range(3)])
+    return individual
+
+
+def _pair(n=N, extra=4, seed=0):
+    return (_genome(QNEATGene, QNEATIndividual, n, extra, seed),
+            _genome(JaxGene, JaxIndividual, n, extra, seed))
+
+
+def _fields(individual):
+    return ([(g.innovation, g.target, g.control) for g in individual.genes], individual.angles)
+
+
+def _population_fields(population):
+    return ([_fields(i) for i in population.individuals], population.next_innovation,
+            population.elite_flags)
+
+
+def test_genome_operations_equal_jax():
+    (a, a_ref), (b, b_ref) = _pair(seed=1), _pair(extra=6, seed=2)
+    assert _fields(a) == _fields(a_ref)
+    assert a.compatibility_distance(b, 1.0, 0.7, 0.4) == a_ref.compatibility_distance(
+        b_ref, 1.0, 0.7, 0.4)
+    for equal in (False, True):
+        child = QNEATIndividual.crossover(a, b, Random(5), equal_fitness=equal)
+        child_ref = JaxIndividual.crossover(a_ref, b_ref, Random(5), equal_fitness=equal)
+        assert _fields(child) == _fields(child_ref)
+    lowered, lowered_ref = b.lower(), b_ref.lower()
+    assert [repr(l) for l in lowered.layers] == [repr(l) for l in lowered_ref.layers]
+    assert lowered.parameter_values == lowered_ref.parameter_values
+    assert _fields(b.pull_angles_from(lowered)) == _fields(b)
+    with pytest.raises(ValueError):
+        QNEATIndividual(2, (QNEATGene(1, 0), QNEATGene(0, 1)), (0.0,) * 6)
+    population = QNEATPopulation.initial(N, 6, True, random_seed=4)
+    assert _population_fields(population) == _population_fields(
+        JaxPopulation.initial(N, 6, True, random_seed=4))
+
+
+class _Counter:
+    def __init__(self):
+        self.counts, self.results = [], []
+
+
+def _contexts(op, op_ref):
+    ours, theirs = _Counter(), _Counter()
+    context = OperatorContext(
+        circuit_evaluator=StatevectorExpectationEvaluator(op, device="cpu"),
+        result_callback=ours.results.append,
+        circuit_evaluation_count_callback=ours.counts.append, pack_min_layers=4)
+    context_ref = JaxContext(
+        circuit_evaluator=JaxEvaluator(op_ref), result_callback=theirs.results.append,
+        circuit_evaluation_count_callback=theirs.counts.append, pack_min_layers=4)
+    return (context, ours), (context_ref, theirs)
+
+
+def test_operators_equal_jax():
+    op, op_ref = _operators(N, seed=2)
+    (context, ours), (context_ref, theirs) = _contexts(op, op_ref)
+    individuals = [_pair(extra=k % 3, seed=10 + k) for k in range(8)]
+    population = QNEATPopulation(tuple(i for i, _ in individuals), N + 2)
+    population_ref = JaxPopulation(tuple(j for _, j in individuals), N + 2)
+
+    selected = QNEATSpeciationSelection(random_seed=3).apply_operator(population, context)
+    selected_ref = JaxSelection(random_seed=3).apply_operator(population_ref, context_ref)
+    assert _population_fields(selected) == _population_fields(selected_ref)
+    assert ours.counts == theirs.counts == [8]
+    np.testing.assert_allclose(ours.results[0].expectation_values,
+                               theirs.results[0].expectation_values,
+                               atol=1e-5 * np.abs(op_ref.coeffs).sum())
+    mutated = QNEATAngleMutation(random_seed=4).apply_operator(selected, context)
+    mutated_ref = JaxAngleMutation(random_seed=4).apply_operator(selected_ref, context_ref)
+    assert _population_fields(mutated) == _population_fields(mutated_ref)
+    grown = QNEATAddGate(mutation_probability=0.9, random_seed=5).apply_operator(mutated, context)
+    grown_ref = JaxAddGate(mutation_probability=0.9, random_seed=5).apply_operator(
+        mutated_ref, context_ref)
+    assert _population_fields(grown) == _population_fields(grown_ref)
+    assert grown.next_innovation > population.next_innovation
+
+
+def _settings(optimizer):
+    return dict(configured_sampler=None, max_generations=3, max_circuit_evaluations=None,
+                termination_criterion=None, random_seed=7, population_size=8,
+                add_gate_probability=0.6, pack_min_layers=4, optimizer=optimizer)
+
+
+class JaxNumbers(JaxEvaluator):
+    """The JAX package's evaluator with the two members the port's driver
+    reads."""
+
+    device = "cpu"
+
+    def initial_states(self, pop):
+        return None
+
+
+def _generations(result):
+    return [(
+        [repr(ind.layers) for ind in gen.population.individuals],
+        np.asarray(gen.expectation_values, dtype=np.float64),
+    ) for gen in result.population_evaluation_results]
+
+
+@pytest.mark.parametrize("polish", [False, True])
+def test_solve_matches_jax_generation_by_generation(polish):
+    op, op_ref = _operators(N, seed=6)
+    ours = QNEATMinimumEigensolver(QNEATMinimumEigensolverConfiguration(
+        configured_estimator=ConfiguredEstimator(), device="cpu",
+        **_settings(BatchedNFT(NFTConfig(maxiter=6, cache_prefix=False)) if polish else None)))
+    theirs = JaxSolver(JaxConfiguration(
+        configured_estimator=JaxEstimator(),
+        **_settings(JaxNFT(JaxNFTConfig(maxiter=6)) if polish else None)))
+    got = ours.compute_minimum_eigenvalue(op)
+    want = theirs.compute_minimum_eigenvalue(op_ref)
+    tol = 1e-5 * float(np.abs(op_ref.coeffs).sum())
+    assert got.circuit_evaluations == want.circuit_evaluations
+    assert got.generations == want.generations == 3
+    compared = list(zip(_generations(got), _generations(want)))
+    # the polish runs NFT over every angle; a coordinate's closed-form
+    # minimum switches branch where its sinusoid is nearly flat, so after
+    # one generation the two packages' 1e-7 rounding differences can land
+    # an individual in another minimum (0.023 apart in generation 2 here);
+    # the replay below holds the later generations
+    for (layers, energies), (layers_ref, energies_ref) in compared[:1] if polish else compared:
+        assert layers == layers_ref
+        np.testing.assert_allclose(energies, energies_ref, atol=tol, rtol=0)
+    if not polish:
+        assert got.eigenvalue == pytest.approx(want.eigenvalue, abs=tol)
+
+    # replayed with the JAX numerics: the same solve bit for bit
+    replay = QNEATMinimumEigensolver(QNEATMinimumEigensolverConfiguration(
+        configured_estimator=ConfiguredEstimator(), device="cpu",
+        **_settings(JaxNFT(JaxNFTConfig(maxiter=6)) if polish else None)))
+    replayed = replay._solve_by_evolution(JaxNumbers(op_ref), None)
+    for (layers, energies), (layers_ref, energies_ref) in zip(_generations(replayed),
+                                                            _generations(want)):
+        assert layers == layers_ref
+        np.testing.assert_array_equal(energies, energies_ref)
+    assert replayed.circuit_evaluations == want.circuit_evaluations
+
+
+def test_unported_knobs_are_refused():
+    base = dict(configured_estimator=ConfiguredEstimator(), **_settings(None))
+    for knob in (dict(amp_devices=2), dict(shard_amplitudes=True), dict(n_devices=2),
+                 dict(checkpoint_path="x")):
+        with pytest.raises(NotImplementedError):
+            QNEATMinimumEigensolver(QNEATMinimumEigensolverConfiguration(**base, **knob))
+    with pytest.raises(ValueError):
+        QNEATMinimumEigensolverConfiguration(**{**base, "population_size": 1})
