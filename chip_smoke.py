@@ -121,10 +121,37 @@ with elapsed seconds:
 21. QNEAT on config 4's instance (population 16, 3 generations), pure and
    with an NFT polish: row 1 in every generation, a best-so-far that does
    not rise, the eigenvalue equal to rows 6 and 1's energy of the best
-   individual, the evaluation count the reference's formula.
+   individual, the evaluation count the reference's formula;
+22. the command line (``queasars_tpu_torch.__main__.main``) in this process
+   on config 4's instance written by the port's JSSP codec, on the fold
+   then the slot route: a 4-generation run writing ``--output`` (decoded
+   by the port's result decoder), then a run stopped after 2 generations
+   with ``--checkpoint`` and resumed to 4 with ``--resume``, whose best per
+   generation, ledger, eigenvalue and likeliest state must equal the
+   uninterrupted run's bit for bit, with the route's kernels launched; then
+   ``python -m queasars_tpu_torch solve`` once in a subprocess (exit 0);
+23. the same crash and resume on config 3's instance with the CLI's
+   sampler (512 shots, CVaR 0.5; row 10 draws the resumed stream) and with
+   ``--algorithm qneat`` on config 4's (2 + 1 generations against 3);
+24. an external backend: a ``CallbackCircuitEvaluator`` whose callable
+   rebinds and packs the circuits and returns the port's own evaluator's
+   energies on config 4's table: equal to ``evaluate_packed`` on a P=16,
+   5-layer population; an EVQE solve through it (2 generations, NFT
+   maxiter 10) stepping NFT on the host (row 1 and row 9 only, best so far
+   not rising); one SPSA ``minimize`` call ending at or below its mean;
+25. a black-box bitstring objective returning config 3's energy of the
+   bitstring: per route, its values from the kernel's probabilities against
+   the plain version's on the same keys (draws >= 99% slot, 97.5% fold,
+   equal values where an individual's draws all agree), recomputed in
+   float64 on the host from the counts read back; then
+   ``compute_minimum_function_value`` (512 shots, CVaR 0.5, P=16, 2
+   generations), the objective called once per distinct state;
+26. ``utils/profiling.trace`` around config 4's slot solve with selection
+   inside ``annotate("selection")``: the exported trace names ``slot_pass``
+   and the annotation once per generation.
 
 Phases 12-15 print their solve seconds, evaluations per second, the card's
-name and power limit, and their launches per kernel row; phases 17-21 also
+name and power limit, and their launches per kernel row; phases 17-26 also
 their peak device memory.
 
 The line before the last is a JSON record of every kernel; the last line
@@ -192,6 +219,27 @@ ADAPT_TFIM = dict(pool="full", max_depth=8, optimizer_maxiter=100)
 ADAPT_JSSP = dict(pool="linear", max_depth=4, optimizer_maxiter=50)
 #: QNEAT on config 4's instance, pure and with an NFT polish
 QNEAT4 = dict(population=16, generations=3, seed=0, nft_maxiter=10)
+#: the command line on config 4's instance: a run of 4 generations, and one
+#: stopped after 2 then resumed to 4 from its checkpoint
+CLI4 = dict(population=16, nft_maxiter=30, seed=0, generations=4, crash_at=2)
+#: the sampler's resume on config 3's instance (512 shots, CVaR 0.5): 2 + 2
+#: generations against 4; QNEAT's on config 4's: 2 + 1 against 3
+CLI3 = dict(shots=512, alpha=0.5, generations=4, crash_at=2)
+CLI_QNEAT = dict(generations=3, crash_at=2)
+#: the external backend on config 4's table: the P=16, 5-layer population of
+#: bar (a), an EVQE solve (NFT maxiter 10, generations 4 -> 2) and one SPSA
+#: call (maxiter 10)
+EXTERNAL = dict(population=16, layers=5, seed=21, maxiter=10, generations=2, spsa_maxiter=10)
+#: the bitstring-function solve on config 3's energies: 512 shots, CVaR 0.5,
+#: P=16, NFT maxiter 10, generations 4 -> 2
+FUNCTION3 = dict(shots=512, alpha=0.5, population=16, maxiter=10, generations=2, seed=0,
+                 layers=5)
+#: draws from the probabilities kernels that must equal the plain
+#: versions': row 4's states equal the plain version's bits but its squared
+#: magnitudes round differently (4.7e-10 apart at n=20), so a draw on a bin
+#: boundary can flip, as on the sampled kernels' bars
+SLOT_DRAW_BAR = 0.99
+FOLD_DRAW_BAR = 0.975
 #: kernel -> its row in PERF.md's kernel table
 ROWS = {
     "energies_exact": 1, "population_states": 2, "nft_layer_sweep": 3, "population_probs": 4,
@@ -2337,6 +2385,452 @@ def phase_qneat(card, hamiltonian, table):
         require(evals == formula, "QNEAT's evaluation count is not the reference's formula")
 
 
+# ---------------------------------------------------------------------------
+# the command line, checkpoint and resume, external evaluators, black-box
+# bitstring objectives and profiling
+# ---------------------------------------------------------------------------
+
+
+def work_dir(*parts) -> str:
+    """A fresh directory under the checkout's ignored ``build/`` for the
+    phases' files (instances, checkpoints, results, traces)."""
+    import os
+    import shutil
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke", *parts)
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    return path
+
+
+def write_instance(encoder, path) -> str:
+    """The encoder's JSSP instance as JSON through the port's codec."""
+    from queasars_tpu_torch.problems.jssp.serialization import JSSPJSONEncoder
+
+    with open(path, "w") as fh:
+        json.dump(encoder.jssp_instance, fh, cls=JSSPJSONEncoder)
+    return path
+
+
+def run_cli(args) -> dict:
+    """``python -m queasars_tpu_torch`` run in this process: its summary."""
+    import contextlib
+    import io
+
+    import torch
+
+    from queasars_tpu_torch.__main__ import main as cli_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        status = cli_main(args)
+    torch.cuda.synchronize()
+    require(status == 0, f"the command line exited {status}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def crash_and_resume(label, card, base, total, crash_at, directory):
+    """A CLI solve of ``total`` generations, then one stopped after
+    ``crash_at`` (its last checkpoint is the pipeline pass before its last
+    selection) and resumed to ``total``: (uninterrupted summary, resumed
+    summary, the uninterrupted run's launches)."""
+    import os
+
+    from queasars_tpu_torch.solver.checkpoint import load_checkpoint
+
+    checkpoint = os.path.join(directory, "state.json")
+    reset_memory()
+    reset_launch_counts()
+    start = time.perf_counter()
+    full = run_cli([*base, "--generations", str(total)])
+    seconds = time.perf_counter() - start
+    launches = launch_counts()
+    phase_line(f"{label}: {total} generations, eigenvalue {full['eigenvalue']:.6f}", seconds,
+               sum(full["circuit_evaluations"]), card, launches)
+    reset_memory()
+    reset_launch_counts()
+    start = time.perf_counter()
+    first = run_cli([*base, "--generations", str(crash_at), "--checkpoint", checkpoint])
+    written = load_checkpoint(checkpoint)
+    resumed = run_cli([*base, "--generations", str(total), "--checkpoint", checkpoint, "--resume"])
+    seconds = time.perf_counter() - start
+    evals = (sum(first["circuit_evaluations"]) + sum(resumed["circuit_evaluations"])
+             - sum(written.n_circuit_evaluations))
+    phase_line(f"{label}: stopped after {crash_at} generations (checkpoint at generation "
+               f"{written.n_generations}), resumed to {total}", seconds, evals, card,
+               launch_counts())
+    for key in ("best_per_generation", "circuit_evaluations", "eigenvalue", "likeliest_state",
+                "generations"):
+        require(resumed[key] == full[key],
+                f"{label}: the resumed {key} {resumed[key]} differs from the uninterrupted "
+                f"{full[key]}")
+    say(f"  check: the resumed run equals the uninterrupted one bit for bit (best per "
+        f"generation {full['best_per_generation']}, ledger {full['circuit_evaluations']})")
+    require(os.path.getsize(checkpoint) > 0, "no checkpoint was written")
+    return full, resumed, launches
+
+
+def phase_cli_resume(card, route, instance_path, makespan):
+    """Config 4 through the command line on one route: a 4-generation run
+    writing its result, then a crash after 2 generations resumed to 4."""
+    import os
+
+    from queasars_tpu_torch.solver.serialization import (
+        EvolvingAnsatzMinimumEigensolverResultJSONDecoder,
+    )
+
+    use_route(route)
+    directory = work_dir(f"cli_{route}")
+    output = os.path.join(directory, "result.json")
+    base = ["solve", "--jssp", instance_path, "--makespan-limit", str(makespan),
+            "--population", str(CLI4["population"]), "--nft-maxiter", str(CLI4["nft_maxiter"]),
+            "--seed", str(CLI4["seed"])]
+    full, _, launches = crash_and_resume(
+        f"CLI config 4 ({route} route)", card, [*base, "--output", output], CLI4["generations"],
+        CLI4["crash_at"], directory)
+    with open(output) as fh:
+        result = json.load(fh, cls=EvolvingAnsatzMinimumEigensolverResultJSONDecoder)
+    say(f"  check: --output decodes to {result.generations} generations, eigenvalue "
+        f"{result.eigenvalue:.6f}; decoded {full['decoded']}")
+    require(result.generations == CLI4["generations"], "the result file has the wrong generations")
+    require(result.eigenvalue == full["eigenvalue"], "the result file's eigenvalue differs")
+    slot, fold = ROUTE_KERNELS["slot"], ROUTE_KERNELS["fold"]
+    must = (slot[0], slot[2], slot[3]) if route == "slot" else (fold[0], fold[2], fold[3])
+    for name in must:
+        require(launches[name] > 0, f"the CLI solve did not launch {name} on the {route} route")
+    if route == "slot":
+        require(not any(launches[name] for name in fold), "a fold kernel ran on the slot route")
+    else:
+        require(launches["nft_layer_sweep"] == 0 and launches["population_probs"] == 0,
+                "a slot sweep or probabilities kernel ran on the fold route")
+
+
+def phase_cli_subprocess(card, instance_path, makespan):
+    """``python -m queasars_tpu_torch solve`` in a process of its own (the
+    default route, one generation)."""
+    import os
+    import subprocess
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    command = [sys.executable, "-m", "queasars_tpu_torch", "solve", "--jssp", instance_path,
+               "--makespan-limit", str(makespan), "--population", str(CLI4["population"]),
+               "--nft-maxiter", str(CLI4["nft_maxiter"]), "--seed", str(CLI4["seed"]),
+               "--generations", "1"]
+    env = {k: v for k, v in os.environ.items() if k != "QUEASARS_MXU"}
+    env["PYTHONPATH"] = root
+    start = time.perf_counter()
+    proc = subprocess.run(command, cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - start
+    require(proc.returncode == 0, f"python -m queasars_tpu_torch exited {proc.returncode}: "
+                                  f"{proc.stderr[-1500:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    say(f"phase CLI subprocess (python -m queasars_tpu_torch solve, default route, 1 generation): "
+        f"{seconds:.3f} s with the process start, exit 0 | {card} | summary {summary}")
+    require(summary["generations"] == 1, "the subprocess summary is wrong")
+
+
+def phase_cli_sampler_and_qneat(card, encoder3, encoder4):
+    """Crash-and-resume on the sampler path (config 3) and with QNEAT
+    (config 4), default route: the shot-key counter and the QNEAT
+    population resume."""
+    use_route("fold")
+    directory = work_dir("cli_sampler")
+    path3 = write_instance(encoder3, f"{directory}/instance.json")
+    base = ["solve", "--jssp", path3, "--makespan-limit", str(encoder3.makespan_limit),
+            "--population", str(CLI4["population"]), "--nft-maxiter", str(CLI4["nft_maxiter"]),
+            "--seed", str(CLI4["seed"]), "--sampler", "--shots", str(CLI3["shots"]),
+            "--alpha-tail", str(CLI3["alpha"])]
+    _, _, launches = crash_and_resume(f"CLI config 3 sampler ({encoder3.n_qubits} qubits)", card,
+                                      base, CLI3["generations"], CLI3["crash_at"], directory)
+    sampled = SAMPLER_ROUTE_KERNELS["fold"][0]
+    require(launches[sampled] > 0, f"the sampler solve did not launch {sampled}")
+    directory = work_dir("cli_qneat")
+    path4 = write_instance(encoder4, f"{directory}/instance.json")
+    base = ["solve", "--jssp", path4, "--makespan-limit", str(encoder4.makespan_limit),
+            "--population", str(CLI4["population"]), "--nft-maxiter", str(CLI4["nft_maxiter"]),
+            "--seed", str(CLI4["seed"]), "--algorithm", "qneat"]
+    _, _, launches = crash_and_resume("CLI QNEAT (config 4)", card, base,
+                                      CLI_QNEAT["generations"], CLI_QNEAT["crash_at"], directory)
+    require(launches["energies_exact"] > 0 and launches["energies_exact_folded"] > 0,
+            "the QNEAT solve did not launch rows 1 and 6")
+    say(f"  reduced: config 3 generations {CONFIG3['generations']} stopped at "
+        f"{CLI3['crash_at']} and resumed; QNEAT (no BASELINE config) {CLI_QNEAT['generations']} "
+        f"generations; the CLI's own EVQE settings (parameter search 0.4, topological 0.5, "
+        f"removal 0.1, penalties 0.1 / 0.05, tournament 2), population {CLI4['population']}, "
+        f"NFT maxiter {CLI4['nft_maxiter']}")
+
+
+def phase_external(card, hamiltonian, table):
+    """An external backend: a callback that rebinds each circuit's
+    parameters, packs the circuits and returns the port's internal
+    evaluator's energies on the card (config 4's table)."""
+    import numpy as np
+
+    from queasars_tpu_torch.genome import EVQEPopulation, PackedPopulation
+    from queasars_tpu_torch.optim import BatchedNFT, BatchedSPSA, NFTConfig, SPSAConfig
+    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+    from queasars_tpu_torch.sim.external import CallbackCircuitEvaluator
+    from queasars_tpu_torch.solver import (
+        EVQEMinimumEigensolver,
+        EVQEMinimumEigensolverConfiguration,
+    )
+
+    use_route("fold")
+    n = hamiltonian.n_qubits
+    internal = StatevectorExpectationEvaluator(hamiltonian, device=DEVICE)
+    calls = [0]
+
+    def backend(circuits, parameter_values):
+        calls[0] += 1
+        return internal.evaluate_circuits(circuits, parameter_values)
+
+    external = CallbackCircuitEvaluator(backend, n, name="internal-evaluator backend")
+    scale = float(table.abs().max())
+    cfg = EXTERNAL
+    population = EVQEPopulation.random_population(n, cfg["layers"], cfg["population"], True,
+                                                  random_seed=cfg["seed"])
+    packed = PackedPopulation.pack(list(population.individuals),
+                                   min_layers=SOLVE["pack_min_layers"])
+    got, want = external.evaluate_packed(packed), internal.evaluate_packed(packed)
+    gap = float(np.abs(got - want).max())
+    say(f"phase external backend (a): callback vs evaluate_packed at n={n}, P={cfg['population']}, "
+        f"{cfg['layers']} layers: max |difference| {gap:.3e} (bar {1e-6 * scale:.3e}), equal bits "
+        f"{bool(np.array_equal(got, want))}")
+    require(gap <= 1e-6 * scale, "the callback's energies disagree with the internal evaluator's")
+
+    clock = _LaunchClock()
+    solver = EVQEMinimumEigensolver(EVQEMinimumEigensolverConfiguration(
+        configured_estimator=None, configured_sampler=None, evaluator=external,
+        optimizer=BatchedNFT(NFTConfig(maxiter=cfg["maxiter"])),
+        optimizer_n_circuit_evaluations=None, max_generations=cfg["generations"],
+        max_circuit_evaluations=None, termination_criterion=clock, random_seed=SOLVE["seed"],
+        population_size=cfg["population"], speciation_genetic_distance_threshold=2,
+        selection_alpha_penalty=0.1, selection_beta_penalty=0.1,
+        parameter_search_probability=0.25, topological_search_probability=0.4,
+        layer_removal_probability=0.05, pack_min_layers=SOLVE["pack_min_layers"], device=DEVICE))
+    calls[0] = 0
+    reset_memory()
+    result, seconds, launches = timed_solve(solver, hamiltonian)
+    phase_line(f"external backend (b): EVQE solve through the callback (config 4, "
+               f"{result.generations} generations, host-stepped NFT maxiter {cfg['maxiter']}, "
+               f"{calls[0]} callback calls, eigenvalue {result.eigenvalue:.6f})", seconds,
+               int(sum(result.circuit_evaluations)), card, launches)
+    say(f"  reduced: generations {SOLVE['generations']} -> {cfg['generations']}, NFT maxiter "
+        f"{SOLVE['maxiter']} -> {cfg['maxiter']} (population and qubits uncut)")
+    bests = np.minimum.accumulate(clock.bests)
+    say(f"  check: generation bests {[round(b, 6) for b in clock.bests]}, best so far "
+        f"{[round(b, 6) for b in bests]}")
+    require(result.generations == cfg["generations"], "the external solve stopped early")
+    require(result.eigenvalue == bests[-1] and np.all(np.diff(bests) <= 0),
+            "the external solve's best energy rose")
+    require(launches["energies_exact"] > 0, "the callback did not launch row 1")
+    for name in ("nft_layer_sweep", "nft_layer_sweep_folded", "energies_exact_folded"):
+        require(launches[name] == 0, f"{name} ran: NFT did not step on the host")
+    require(launches["population_probs_folded"] == 1,
+            "the final distribution did not launch row 9 once")
+
+    spsa_packed, coords, n_free = last_layer_problem(n, dict(
+        population=cfg["population"], layers=3, seed=cfg["seed"] + 1))
+    before = external.evaluate_packed(spsa_packed)
+    calls[0] = 0
+    reset_memory()
+    reset_launch_counts()
+    start = time.perf_counter()
+    angles, energies, nfev = BatchedSPSA(SPSAConfig(maxiter=cfg["spsa_maxiter"])).minimize(
+        external, spsa_packed, coords, n_free, n_free > 0, seed=cfg["seed"])
+    seconds = time.perf_counter() - start
+    phase_line(f"external backend (c): host-stepped SPSA minimize (P={cfg['population']}, "
+               f"maxiter {cfg['spsa_maxiter']}, {calls[0]} callback calls)", seconds, nfev, card,
+               launch_counts())
+    say(f"  check: mean energy {float(before.mean()):.6f} -> {float(energies.mean()):.6f}")
+    require(float(energies.mean()) <= float(before.mean()), "SPSA raised the mean energy")
+    require(np.array_equal(energies, internal.evaluate_packed(spsa_packed, angles=angles)),
+            "SPSA's final energies are not the internal evaluator's at its angles")
+
+
+def reference_function_values(observed, counts, values, shots, alpha):
+    """The float64 expectation or CVaR of counts [P, K] over the observed
+    states' objective values [K]: frequencies as float32 counts times the
+    float32 reciprocal of the shots, then the reference's arithmetic
+    (queasars_tpu/sim/evaluators.py:663-680) on the host."""
+    import numpy as np
+
+    probs = (counts.astype(np.float32) * np.float32(1.0 / shots)).astype(np.float64)
+    if alpha >= 1.0:
+        return probs @ values
+    order = np.argsort(values, kind="stable")
+    v_sorted = values[order]
+    p_sorted = probs[:, order]
+    cum_prev = np.cumsum(p_sorted, axis=1) - p_sorted
+    weights = np.clip(alpha - cum_prev, 0.0, p_sorted)
+    return (weights * v_sorted).sum(axis=1) / alpha
+
+
+def phase_function_value(card, hamiltonian3):
+    """A black-box bitstring objective: config 3's diagonal energy of the
+    bitstring, minimised by ``compute_minimum_function_value``."""
+    import numpy as np
+    import torch
+
+    from queasars_tpu_torch.genome import EVQEPopulation, PackedPopulation
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.paulis import diagonal_energy_table
+    from queasars_tpu_torch.sim import fold_kernels, slot_kernels
+    from queasars_tpu_torch.sim.evaluators import (
+        BitstringFunctionEvaluator,
+        observed_frequencies,
+        packed_tensors,
+    )
+    from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
+    from queasars_tpu_torch.sim.sampling import sample_indices
+    from queasars_tpu_torch.solver import (
+        ConfiguredSampler,
+        EVQEMinimumEigensolver,
+        EVQEMinimumEigensolverConfiguration,
+    )
+    from queasars_tpu_torch.utils import BitstringEvaluator, prng
+
+    cfg = FUNCTION3
+    n = hamiltonian3.n_qubits
+    energies = diagonal_energy_table(hamiltonian3, dtype=torch.float64).numpy()
+    calls = []
+
+    def energy(bits: str) -> float:
+        # the bitstring is the basis state written most significant qubit
+        # first: bits[0] is qubit n-1, bits[-1] qubit 0
+        calls.append(bits)
+        return float(energies[int(bits, 2)])
+
+    objective = BitstringEvaluator(n, energy)
+    population = EVQEPopulation.random_population(n, cfg["layers"], cfg["population"], True,
+                                                  random_seed=cfg["seed"] + 7)
+    packed = PackedPopulation.pack(list(population.individuals),
+                                   min_layers=SOLVE["pack_min_layers"])
+    tensors = packed_tensors(packed, device=DEVICE)
+    keys = prng.split(prng.fold_in(prng.PRNGKey(cfg["seed"]), 1), packed.n_individuals)
+    frac = prng.uniform(keys, (cfg["shots"],)).to(DEVICE)
+    for route in ("slot", "fold"):
+        use_route(route)
+        evaluator = BitstringFunctionEvaluator(objective, cfg["shots"], cfg["alpha"],
+                                               seed=cfg["seed"], device=DEVICE)
+        reset_launch_counts()
+        probs = evaluator.probabilities(packed)
+        launched = per_row(launch_counts())
+        if route == "slot":
+            plain = slot_kernels.population_probs_plain(*tensors, n)
+        else:
+            pipeline = build_fold_pipeline(*tensors, n, absorb_diag=True)
+            plain = fold_kernels.population_probs_folded_plain(pipeline, n)
+        got = evaluator.energies_from_probabilities(probs, keys)
+        want = evaluator.energies_from_probabilities(plain, keys)
+        drawn = sample_indices(keys, probs, cfg["shots"])
+        drawn_plain = sample_indices(keys, plain, cfg["shots"])
+        share, not_boundary = draw_agreement(plain, frac, drawn, drawn_plain)
+        # an individual whose draws all agree has the plain version's value;
+        # each flipped draw moves a CVaR by at most 2 max|f| / (alpha shots)
+        flips = (drawn != drawn_plain).sum(dim=1).cpu().numpy()
+        allowed = flips * 2 * float(np.abs(energies).max()) / (cfg["alpha"] * cfg["shots"])
+        # bar (b): the values again, in float64 on the host from the counts
+        # read back from the device
+        observed, frequencies = observed_frequencies(keys, probs, cfg["shots"])
+        counts = torch.round(frequencies * cfg["shots"]).to(torch.int64).cpu().numpy()
+        values = np.array([energies[s] for s in observed.cpu().numpy()])
+        host = reference_function_values(observed, counts, values, cfg["shots"], cfg["alpha"])
+        say(f"phase bitstring function (a, b) on the {route} route (n={n}, P={cfg['population']}, "
+            f"{cfg['shots']} shots, alpha {cfg['alpha']}): launches {launched}; kernel vs plain "
+            f"probabilities: draws equal {share:.4%} (non-boundary differences {not_boundary}), "
+            f"individuals with every draw equal {int((flips == 0).sum())} of {len(flips)}, values "
+            f"max |difference| {float(np.abs(got - want).max()):.3e} (flipped-draw bound "
+            f"{float(allowed.max()):.3e}); host float64 recomputation from {int(counts.sum())} "
+            f"counts over {len(values)} states equal {bool(np.array_equal(host, got))}")
+        row = "row 4" if route == "slot" else "row 9"
+        require(launched.get(row, 0) == 1, f"the probabilities did not launch {row} once")
+        bar = SLOT_DRAW_BAR if route == "slot" else FOLD_DRAW_BAR
+        require(share >= bar and not_boundary == 0,
+                f"the {route} route's draws disagree with the plain version's")
+        require(np.all(np.abs(got - want) <= allowed),
+                f"the {route} route's values differ from the plain version's beyond its flips")
+        require(np.array_equal(host, got), "the host recomputation disagrees with the evaluator")
+
+    use_route("fold")
+    clock = _LaunchClock()
+    solver = EVQEMinimumEigensolver(EVQEMinimumEigensolverConfiguration(
+        configured_estimator=None,
+        configured_sampler=ConfiguredSampler(shots=cfg["shots"], seed=cfg["seed"]),
+        optimizer=BatchedNFT(NFTConfig(maxiter=cfg["maxiter"])),
+        optimizer_n_circuit_evaluations=None, max_generations=cfg["generations"],
+        max_circuit_evaluations=None, termination_criterion=clock, random_seed=cfg["seed"],
+        population_size=cfg["population"], speciation_genetic_distance_threshold=2,
+        selection_alpha_penalty=0.1, selection_beta_penalty=0.1,
+        parameter_search_probability=0.25, topological_search_probability=0.4,
+        layer_removal_probability=0.05, use_tournament_selection=True,
+        tournament_size=CONFIG3["tournament_size"], distribution_alpha_tail=cfg["alpha"],
+        pack_min_layers=SOLVE["pack_min_layers"], device=DEVICE))
+    calls.clear()
+    reset_memory()
+    reset_launch_counts()
+    start = time.perf_counter()
+    result = solver.compute_minimum_function_value(objective)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = launch_counts()
+    phase_line(f"bitstring-function solve (config 3's energies, {n} qubits, default route, "
+               f"{result.generations} generations, host-stepped NFT maxiter {cfg['maxiter']}, "
+               f"best {result.eigenvalue:.6f})", seconds, int(sum(result.circuit_evaluations)),
+               card, launches)
+    say(f"  reduced: generations {CONFIG3['generations']} -> {cfg['generations']}, NFT maxiter "
+        f"{CONFIG3['maxiter']} -> {cfg['maxiter']} (shots, alpha, population and qubits uncut)")
+    bests = np.minimum.accumulate(clock.bests)
+    say(f"  check (c, d): the function ran {len(calls)} times on {len(set(calls))} distinct "
+        f"states; generation bests {[round(b, 6) for b in clock.bests]}, best so far "
+        f"{[round(b, 6) for b in bests]}")
+    require(len(calls) == len(set(calls)), "the function ran twice on one state")
+    require(result.eigenvalue == bests[-1] and np.all(np.diff(bests) <= 0),
+            "the function solve's best value rose")
+    require(launches["population_probs_folded"] > 0, "the function solve did not launch row 9")
+    for name in ("nft_layer_sweep_folded", "energies_exact_folded", "sampled_shot_indices_folded",
+                 "sampled_shot_indices"):
+        require(launches[name] == 0, f"{name} ran in the function solve")
+
+
+def phase_profiling(card, hamiltonian):
+    """``utils/profiling.trace`` around one config 4 slot solve, with the
+    selection operator inside ``annotate("selection")``."""
+    import glob
+    import os
+
+    from queasars_tpu_torch.utils.profiling import annotate, trace
+
+    use_route("slot")
+    solver = config4_solver()
+    selection = solver.configuration.evolutionary_operators[2]
+    apply_operator = selection.apply_operator
+
+    def annotated(population, operator_context):
+        with annotate("selection"):
+            return apply_operator(population, operator_context)
+
+    selection.apply_operator = annotated
+    directory = work_dir("trace")
+    reset_memory()
+    reset_launch_counts()
+    start = time.perf_counter()
+    with trace(directory, label="config4-slot"):
+        result = solver.compute_minimum_eigenvalue(hamiltonian)
+    seconds = time.perf_counter() - start
+    (path,) = glob.glob(os.path.join(directory, "config4-slot.*.pt.trace.json"))
+    with open(path) as fh:
+        names = [event.get("name", "") for event in json.load(fh)["traceEvents"]]
+    slot_passes = sum("slot_pass" in name for name in names)
+    selections = names.count("selection")
+    phase_line(f"profiled config 4 slot solve ({result.generations} generations, trace "
+               f"{os.path.getsize(path) / 2**20:.2f} MiB, {len(names)} events, {slot_passes} "
+               f"slot_pass events, {selections} selection annotations)", seconds,
+               int(sum(result.circuit_evaluations)), card, launch_counts())
+    require(slot_passes > 0, "the trace names no slot_pass kernel")
+    require(selections == result.generations, "the trace lacks the selection annotations")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     try:
@@ -2406,6 +2900,14 @@ def main() -> int:
         phase_adapt(card, "(b) config 4's JSSP-20", hamiltonian, ADAPT_JSSP,
                     float(table.abs().max()))
         phase_qneat(card, hamiltonian, table)
+        instance_path = write_instance(encoder, f"{work_dir('cli')}/instance.json")
+        for route in ("fold", "slot"):
+            phase_cli_resume(card, route, instance_path, encoder.makespan_limit)
+        phase_cli_subprocess(card, instance_path, encoder.makespan_limit)
+        phase_cli_sampler_and_qneat(card, encoder3, encoder)
+        phase_external(card, hamiltonian, table)
+        phase_function_value(card, hamiltonian3)
+        phase_profiling(card, hamiltonian)
     except Failure as failure:
         say(f"FAILED: {failure}")
         return 1

@@ -10,8 +10,11 @@ Ported so far: every solver of the JAX package on one device -- EVQE and
 MoG-VQE (exact or shot-sampled, diagonal or general operators) on the JAX
 package's two kernel routes, the kron-fold route (the default) and the slot
 route (``QUEASARS_MXU=0``); NFT, SPSA, COBYLA and gradient descent; QNEAT,
-ADAPT-VQE and QAOA; the JSSP, spin-chain and QUBO-family problem encoders.
-ROADMAP.md lists what follows (persistence, distribution, the CLI).
+ADAPT-VQE and QAOA; the JSSP, spin-chain and QUBO-family problem encoders;
+external evaluation backends and black-box bitstring objectives; the JSON
+and OpenQASM codecs, full-state checkpoint and resume, profiling, plots and
+the command line (``python -m queasars_tpu_torch solve``).  ROADMAP.md
+lists what follows (the device mesh and amplitude sharding).
 """
 
 __version__ = "0.1.0"

@@ -36,6 +36,12 @@ kernels: their last-layer searches take the prefix-state loop, and an
 exact general objective runs the full circuits (the reference gives its
 general exact operands ``use_pallas=False``, which also makes
 ``minimize_slots`` return None).
+
+An evaluator without objective operands (an external backend,
+``sim/external.py``, or a black-box bitstring function) takes the
+reference's host-stepped numpy loop (:meth:`BatchedNFT._minimize_host`),
+one ``evaluate_packed`` call per probe; ``minimize_slots`` returns None for
+it, so the per-slot loop calls :meth:`BatchedNFT.minimize` slot by slot.
 """
 
 from __future__ import annotations
@@ -270,7 +276,14 @@ class BatchedNFT:
         a = packed.angles if angles is None else angles
         if coords.shape[1] == 0 or not np.any(np.logical_and(active, n_free > 0)):
             return np.asarray(a), np.asarray(evaluator.evaluate_packed(packed, angles=a)), 0
-        operands = objective_operands(evaluator)
+        try:
+            operands = objective_operands(evaluator)
+        except TypeError:
+            # evaluators with host-side objectives (external backends,
+            # black-box bitstring functions) have no operands for the
+            # device steps: run the same NFT math host-stepped against
+            # evaluate_packed
+            return self._minimize_host(evaluator, packed, coords, n_free, active, a)
         device = evaluator.device
         n = packed.n_qubits
         pop = packed.n_individuals
@@ -315,6 +328,36 @@ class BatchedNFT:
             )
             out = transform.merge(layer_angles)
         return out.cpu().numpy(), energies.cpu().numpy(), cfg.n_circuit_evaluations()
+
+    def _minimize_host(self, evaluator, packed, coords, n_free, active, angles):
+        """Host-stepped NFT for evaluators without objective operands: the
+        reference's numpy float64 loop (``_minimize_host``), one
+        ``evaluate_packed`` call per probe, the same operations in the same
+        order."""
+        cfg = self.config
+        pop = packed.n_individuals
+        pop_idx = np.arange(pop)
+        current = np.array(angles, copy=True)
+        z0 = np.zeros(pop, dtype=np.float64)
+        apply = np.logical_and(np.asarray(active, bool), np.asarray(n_free) > 0)
+        for k in range(cfg.maxiter):
+            if k % cfg.reset_interval == 0:
+                z0 = np.asarray(evaluator.evaluate_packed(packed, angles=current), dtype=np.float64)
+            idx = np.where(n_free > 0, k % np.maximum(n_free, 1), 0)
+            coord = coords[pop_idx, idx]
+            l, q, a_i = coord[:, 0], coord[:, 1], coord[:, 2]
+            plus = current.copy()
+            plus[pop_idx, l, q, a_i] += np.pi / 2
+            minus = current.copy()
+            minus[pop_idx, l, q, a_i] -= np.pi / 2
+            z1 = np.asarray(evaluator.evaluate_packed(packed, angles=plus), dtype=np.float64)
+            z3 = np.asarray(evaluator.evaluate_packed(packed, angles=minus), dtype=np.float64)
+            shift, minimum_value = nft_three_point_update(z0, z1, z3, xp=np)
+            updated = current.copy()
+            updated[pop_idx, l, q, a_i] += shift + np.pi
+            current = np.where(apply[:, None, None, None], updated, current)
+            z0 = np.where(apply, minimum_value, z0)
+        return current, z0.astype(np.float32), cfg.n_circuit_evaluations()
 
     def _in_kernel_sweep_applies(self, operands) -> bool:
         """Resolve the ``in_kernel_sweep`` knob as the reference does

@@ -23,17 +23,20 @@ import math
 import torch
 
 
-def nft_three_point_update(z0, z1, z3):
-    """The 3-point sinusoid fit on tensors.
+def nft_three_point_update(z0, z1, z3, xp=torch):
+    """The 3-point sinusoid fit.
 
+    :param xp: array namespace -- ``torch`` for the device steps, ``numpy``
+        for the host-stepped path (float64), as in the reference
     :return: ``(shift, minimum_value)`` — add ``shift + pi`` to the current
         angle to land on the fitted minimum, whose fitted value is
         ``minimum_value`` (recycled as the next step's ``z0``)
     """
     mid = (z1 + z3) / 2
     d, e = z0 - mid, (z1 - z3) / 2
-    shift = torch.atan2(e, d)
-    minimum_value = mid - torch.sqrt(d * d + e * e)
+    square_sum = d * d + e * e
+    shift = torch.atan2(e, d) if xp is torch else xp.arctan2(e, d)
+    minimum_value = mid - xp.sqrt(square_sum)
     return shift, minimum_value
 
 

@@ -24,8 +24,10 @@ per-individual :class:`SPSATerminationChecker` s it steps on the host, one
 step per call, and an individual whose checker stops keeps its angles.
 :meth:`BatchedSPSA.minimize_slots` runs a whole multi-slot parameter search
 from each slot's prefix states.  An evaluator without objective operands
-(the reference's external evaluators, which take its host path) is not
-supported yet.
+(an external backend, ``sim/external.py``, or a black-box bitstring
+function) takes the reference's host-stepped numpy loop
+(:meth:`BatchedSPSA._minimize_host`), its directions drawn from a numpy
+generator seeded with ``seed``; ``minimize_slots`` returns None for it.
 """
 
 from __future__ import annotations
@@ -232,10 +234,14 @@ class BatchedSPSA:
         try:
             operands = objective_operands(evaluator)
         except TypeError:
-            raise NotImplementedError(
-                f"{type(evaluator).__name__} has no objective operands: SPSA's host-stepped "
-                "path for external evaluators (sim/external.py) is not ported yet"
-            ) from None
+            # evaluators with host-side objectives (external backends,
+            # black-box bitstring functions) have no operands for the
+            # device steps: run the same schedules host-stepped against
+            # evaluate_packed (the reference's own qiskit-SPSA shape)
+            return self._minimize_host(
+                evaluator, packed, coords, n_free, active, np.asarray(a), seed,
+                termination_checkers,
+            )
         device = evaluator.device
         pop = packed.n_individuals
         gt, ctrl, ang, lm = packed_tensors(packed, a, device)
@@ -288,6 +294,87 @@ class BatchedSPSA:
                     live[i] = False
         current = ang.cpu().numpy()
         return current, np.asarray(evaluator.evaluate_packed(packed, angles=current)), nfev
+
+    def _minimize_host(
+        self, evaluator, packed, coords, n_free, active, angles, seed,
+        termination_checkers=None,
+    ):
+        """Host-stepped SPSA for evaluators without objective operands: the
+        reference's numpy loop (``_minimize_host``), with the same power-law
+        schedules and calibration, perturbation directions from a numpy
+        generator seeded with ``seed`` (external backends have no
+        stream-identity contract with the device path), and one batched
+        ``evaluate_packed`` call per probe -- so both packages compute the
+        same numbers on the same callback."""
+        cfg = self.config
+        pop = packed.n_individuals
+        pop_idx = np.arange(pop)[:, None]
+        coords = np.asarray(coords)
+        n_coords = coords.shape[1]
+        coord_mask = (
+            np.arange(n_coords)[None, :] < np.asarray(n_free)[:, None]
+        ).astype(np.float64)
+        l, q, a_i = coords[..., 0], coords[..., 1], coords[..., 2]
+        rng = np.random.default_rng(seed)
+        current = np.array(angles, dtype=np.float32, copy=True)
+        apply = np.logical_and(np.asarray(active, bool), np.asarray(n_free) > 0)
+
+        def objective(a):
+            return np.asarray(
+                evaluator.evaluate_packed(packed, angles=a.astype(np.float32)),
+                dtype=np.float64,
+            )
+
+        def shifted(a, delta, scale):
+            out = np.array(a, copy=True)
+            out[pop_idx, l, q, a_i] += (scale * delta).astype(np.float32)
+            return out
+
+        def direction():
+            return (rng.integers(0, 2, size=(pop, n_coords)) * 2 - 1) * coord_mask
+
+        nfev = 0
+        if cfg.learning_rate is None:
+            total = np.zeros(pop, np.float64)
+            for _ in range(cfg.calibration_steps):
+                delta = direction()
+                total += np.abs(
+                    objective(shifted(current, delta, cfg.perturbation))
+                    - objective(shifted(current, delta, -cfg.perturbation))
+                )
+                nfev += 2
+            magnitude = total / cfg.calibration_steps
+            learning_rates = cfg.target_magnitude / np.maximum(magnitude, 1e-6)
+        else:
+            learning_rates = np.full(pop, cfg.learning_rate, np.float64)
+
+        live = apply.copy()
+        for k in range(cfg.maxiter):
+            if not live.any():
+                break
+            c_k = cfg.perturbation / (k + 1.0) ** cfg.gamma_power
+            a_k = learning_rates / (k + 1.0 + cfg.stability_constant) ** cfg.alpha_power
+            delta = direction()
+            f_plus = objective(shifted(current, delta, c_k))
+            f_minus = objective(shifted(current, delta, -c_k))
+            nfev += 2
+            gradient = ((f_plus - f_minus) / (2.0 * c_k))[:, None] * delta
+            updated = np.array(current, copy=True)
+            updated[pop_idx, l, q, a_i] -= (a_k[:, None] * gradient).astype(np.float32)
+            current = np.where(live[:, None, None, None], updated, current)
+            energies = np.minimum(f_plus, f_minus)
+            if termination_checkers is not None:
+                for i, checker in enumerate(termination_checkers):
+                    if live[i] and checker.termination_check(
+                        n_function_evaluations=nfev,
+                        parameter_values=current[i],
+                        function_value=float(energies[i]),
+                        step_size=float(c_k),
+                        accepted=True,
+                    ):
+                        live[i] = False
+        final = np.asarray(evaluator.evaluate_packed(packed, angles=current))
+        return current, final, nfev + 1
 
     def minimize_slots(
         self,

@@ -1,7 +1,8 @@
 """Population circuit evaluators: "population of genomes -> energies".
 
 Counterpart of ``queasars_tpu/sim/evaluators.py`` (``BaseCircuitEvaluator``,
-``StatevectorExpectationEvaluator``, ``SamplerExpectationEvaluator``).  On
+``StatevectorExpectationEvaluator``, ``SamplerExpectationEvaluator``,
+``BitstringFunctionEvaluator``).  On
 the card an exact evaluation of a diagonal operator goes through the slot
 kernels (``sim/slot_kernels.py``), whichever route the optimizers take:
 plain expectations through the fused energies kernel, CVaR through the
@@ -10,8 +11,9 @@ dense matvec (n <= 12) or the matrix-free term scan on the slot states
 kernel's states.  A sampled evaluation takes the optimizers' route, as the
 reference's does: the folded or the slot sampled kernel, or for a general
 operator QWC grouped measurement (``optim/objective.py``,
-``sim/grouped_sampling.py``).  On the CPU the same wrappers run their plain
-versions.
+``sim/grouped_sampling.py``).  A black-box bitstring objective samples the
+probabilities kernel of the optimizers' route and evaluates the objective on
+the host.  On the CPU the same wrappers run their plain versions.
 """
 
 from __future__ import annotations
@@ -29,12 +31,14 @@ from queasars_tpu_torch.paulis import PauliSum
 from queasars_tpu_torch.paulis.diagonal import diagonal_energy_table
 from queasars_tpu_torch.sim import slot_kernels
 from queasars_tpu_torch.sim.expectation import DenseHermitian, pauli_terms
+from queasars_tpu_torch.sim.sampling import sample_indices
 from queasars_tpu_torch.sim.grouped_sampling import (
     allocate_shots,
     grouped_operands,
     grouped_weights,
 )
 from queasars_tpu_torch.utils import prng
+from queasars_tpu_torch.utils.bitstring_evaluation import BitstringEvaluator
 from queasars_tpu_torch.utils.device import resolve_device
 
 
@@ -90,11 +94,15 @@ def _prepare_initial_state(
 
 class BaseCircuitEvaluator(ABC):
     """Uniform "population -> energies" contract
-    (reference: circuit_evaluation.py:62-87)."""
+    (reference: circuit_evaluation.py:62-87).  ``device`` is where the
+    evaluator's circuits run (None = the CUDA device); the solver measures
+    the best circuit's final distribution there, from
+    :meth:`initial_states`."""
 
     def __init__(self, n_qubits: int, device=None):
         self.n_qubits = n_qubits
         self.device = resolve_device(device)
+        self._initial: Optional[torch.Tensor] = None
 
     @abstractmethod
     def evaluate_packed(
@@ -103,10 +111,31 @@ class BaseCircuitEvaluator(ABC):
         """Energies [B] for a packed population; ``angles`` optionally
         overrides the packed angle tensor."""
 
+    def initial_states(self, pop: int) -> Optional[torch.Tensor]:
+        """The shared start state as per-individual [P, 2, 2^n] (None =
+        |0...0>)."""
+        if self._initial is None:
+            return None
+        return self._initial.expand(pop, *self._initial.shape).contiguous()
+
     def evaluate_individuals(self, individuals: Sequence[EVQEIndividual]) -> list[float]:
         """Convenience wrapper: pack then evaluate."""
         packed = PackedPopulation.pack(individuals)
         return [float(v) for v in self.evaluate_packed(packed)]
+
+    def evaluate_circuits(
+        self,
+        circuits: Sequence[EVQEIndividual],
+        parameter_values: Sequence[Sequence[float]],
+    ) -> list[float]:
+        """Reference-signature compatibility shim
+        (circuit_evaluation.py:62-87): "circuits" are genome individuals
+        here; each is re-bound with the given parameter vector."""
+        bound = [
+            EVQEIndividual.change_parameter_values(ind, tuple(params))
+            for ind, params in zip(circuits, parameter_values)
+        ]
+        return self.evaluate_individuals(bound)
 
 
 class _OperatorEvaluator(BaseCircuitEvaluator):
@@ -129,13 +158,6 @@ class _OperatorEvaluator(BaseCircuitEvaluator):
     def _sort_table(self) -> None:
         self._order = torch.argsort(self._table, stable=True)
         self._sorted = self._table[self._order]
-
-    def initial_states(self, pop: int) -> Optional[torch.Tensor]:
-        """The shared start state as per-individual [P, 2, 2^n] (None =
-        |0...0>)."""
-        if self._initial is None:
-            return None
-        return self._initial.expand(pop, *self._initial.shape).contiguous()
 
     def evaluate_packed(self, packed, angles=None):
         tensors = packed_tensors(packed, angles, self.device)
@@ -312,3 +334,112 @@ class StatevectorExpectationEvaluator(_OperatorEvaluator):
             gate_types, controls, angles, layer_mask, n_qubits=self.n_qubits,
             initial_state=initial, use_mxu=False, **objective_operands(self),
         )
+
+
+def observed_frequencies(keys: torch.Tensor, probs: torch.Tensor, shots: int):
+    """The states that ``shots`` draws per individual hit and their shot
+    frequencies, found on ``probs``' device: (the observed states, sorted
+    ascending, int64 [K]; frequencies float32 [P, K], counts times the
+    float32 reciprocal of ``shots``).  The columns of the empirical
+    distribution (``sampling.empirical_probs``) that some individual
+    observed, without building it: K <= P * shots."""
+    samples = sample_indices(keys, probs, shots)
+    observed = torch.unique(samples)
+    columns = torch.searchsorted(observed, samples)
+    counts = torch.zeros((probs.shape[0], observed.shape[0]), dtype=torch.int64,
+                         device=probs.device)
+    counts.scatter_add_(1, columns, torch.ones_like(columns))
+    reciprocal = torch.tensor(1.0 / shots, dtype=torch.float32, device=probs.device)
+    return observed, counts.to(torch.float32) * reciprocal
+
+
+class BitstringFunctionEvaluator(BaseCircuitEvaluator):
+    """Black-box bitstring objective over sampled measurements.
+
+    Counterpart of the JAX package's ``BitstringFunctionEvaluator``
+    (reference: BitstringCircuitEvaluator, circuit_evaluation.py:222-291):
+    each individual's probabilities come from the probabilities kernel of
+    the optimizers' route (``optim/objective.py::population_probs``); its
+    shots are drawn with ``split(fold_in(PRNGKey(seed), c), P)`` in
+    evaluation round c, as the reference's; the observed states and their
+    float32 frequencies are found on the device
+    (:func:`observed_frequencies`) and only they reach the host, where the
+    (host Python) objective runs once per distinct observed state,
+    memoised across calls, and the expectation or CVaR is accumulated in
+    float64 as the reference does
+    (expectation_calculation.py:72-103).  The objective's bitstring is the
+    state index written most significant qubit first
+    (``format(state, "0{n}b")``: qubit 0 is the last character).
+
+    :param bitstring_evaluator: the objective
+    :param shots: measurement shots per evaluation
+    :param alpha: CVaR lower-tail mass in (0, 1]; 1 = plain expectation
+    :param seed: base RNG seed of the shot stream
+    :param initial_state: optional start state prepended to every circuit
+    :param device: where the circuits run (None = the CUDA device)
+    """
+
+    def __init__(
+        self,
+        bitstring_evaluator: BitstringEvaluator,
+        shots: int,
+        alpha: float = 1.0,
+        seed: int = 0,
+        initial_state: Optional[np.ndarray] = None,
+        device=None,
+    ):
+        super().__init__(bitstring_evaluator.input_length, device)
+        if not 0 < alpha <= 1:
+            raise ValueError("alpha (the CVaR tail fraction) lies outside (0, 1]")
+        if shots < 1:
+            raise ValueError("shots must be at least 1")
+        self.bitstring_evaluator = bitstring_evaluator
+        self.shots = int(shots)
+        self.alpha = float(alpha)
+        self._initial = _prepare_initial_state(initial_state, self.n_qubits, self.device)
+        self._key = prng.PRNGKey(seed)
+        self._counter = 0
+        self._value_cache: dict[int, float] = {}
+
+    def _next_keys(self, pop: int) -> torch.Tensor:
+        """Per-individual keys [pop, 2] of the next evaluation round."""
+        self._counter += 1
+        return prng.split(prng.fold_in(self._key, self._counter), pop)
+
+    def _state_value(self, state: int) -> float:
+        if state not in self._value_cache:
+            bitstring = format(state, f"0{self.n_qubits}b")
+            self._value_cache[state] = self.bitstring_evaluator.evaluate_bitstring(bitstring)
+        return self._value_cache[state]
+
+    def probabilities(self, packed: PackedPopulation, angles=None) -> torch.Tensor:
+        """Measurement probabilities [P, 2^n] on the optimizers' route."""
+        from queasars_tpu_torch.optim.objective import population_probs
+
+        return population_probs(
+            *packed_tensors(packed, angles, self.device), n_qubits=self.n_qubits,
+            initial_state=self.initial_states(packed.n_individuals),
+        )
+
+    def energies_from_probabilities(self, probs: torch.Tensor, keys: torch.Tensor) -> np.ndarray:
+        """Objective values [P] (float64) of the shots drawn from ``probs``
+        [P, 2^n] with ``keys`` [P, 2]."""
+        observed, frequencies = observed_frequencies(keys, probs, self.shots)
+        observed = observed.cpu().numpy()
+        values = np.array([self._state_value(int(s)) for s in observed], dtype=np.float64)
+        weights = frequencies.cpu().numpy().astype(np.float64)
+        if self.alpha >= 1.0:
+            return weights @ values
+        # CVaR tail accumulation over states sorted ascending by value --
+        # the vectorized equivalent of the reference's sequential loop
+        # (expectation_calculation.py:14-32)
+        order = np.argsort(values, kind="stable")
+        v_sorted = values[order]
+        p_sorted = weights[:, order]
+        cum_prev = np.cumsum(p_sorted, axis=1) - p_sorted
+        tail = np.clip(self.alpha - cum_prev, 0.0, p_sorted)
+        return (tail * v_sorted).sum(axis=1) / self.alpha
+
+    def evaluate_packed(self, packed, angles=None):
+        keys = self._next_keys(packed.n_individuals)
+        return self.energies_from_probabilities(self.probabilities(packed, angles), keys)

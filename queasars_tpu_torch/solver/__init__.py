@@ -1,5 +1,6 @@
 """Solvers: the generic evolving-ansatz driver, the EVQE, MoG-VQE and QNEAT
-facades, ADAPT-VQE and QAOA."""
+facades, ADAPT-VQE and QAOA; full-state checkpoints, the result JSON codec
+and the convergence and Pareto-front plots."""
 
 from queasars_tpu_torch.solver.termination_criteria import (
     BestIndividualChangeTolerance,
@@ -53,3 +54,7 @@ __all__ = [
     "QNEATMinimumEigensolverConfiguration",
     "result_pareto_front",
 ]
+
+from queasars_tpu_torch.solver.visualization import plot_convergence, plot_pareto_front  # noqa: E402
+
+__all__ += ["plot_convergence", "plot_pareto_front"]

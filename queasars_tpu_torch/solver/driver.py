@@ -14,9 +14,13 @@ samplers -- grouped by QWC measurement groups for a general operator, with
 the sampler's ``shot_allocation`` -- and a sampled final distribution in the
 computational basis.  Where the fused search does not apply (an exact
 estimator solve of a general operator, an optimizer's ``cache_prefix``
-off, COBYLA), ``EVQEParameterSearch`` runs its per-slot loop.  Not ported
-yet, each refused with ``NotImplementedError``: checkpoint and resume, and
-the device mesh.
+off, COBYLA, an evaluator without objective operands),
+``EVQEParameterSearch`` runs its per-slot loop.  An injected external
+evaluator (``evaluator=``, ``sim/external.py``) or a black-box bitstring
+objective (:meth:`EvolvingAnsatzMinimumEigensolver.compute_minimum_function_value`)
+drives the optimizers' host-stepped loops.  Checkpoint and resume write and
+read the JAX package's format (``solver/checkpoint.py``).  Not ported yet,
+refused with ``NotImplementedError``: the device mesh.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ from queasars_tpu_torch.paulis import PauliSum
 from queasars_tpu_torch.optim.objective import population_probs
 from queasars_tpu_torch.sim.evaluators import (
     BaseCircuitEvaluator,
+    BitstringFunctionEvaluator,
+    CircuitEvaluatorException,
     SamplerExpectationEvaluator,
     StatevectorExpectationEvaluator,
     packed_tensors,
@@ -52,6 +58,7 @@ from queasars_tpu_torch.solver.termination_criteria import (
     EvolvingAnsatzMinimumEigensolverBaseTerminationCriterion,
 )
 from queasars_tpu_torch.utils import prng
+from queasars_tpu_torch.utils.bitstring_evaluation import BitstringEvaluator
 
 ListOrDict = Union[list, dict, None]
 
@@ -71,13 +78,27 @@ class EvolvingAnsatzMinimumEigensolverConfiguration:
         distribution
     :param configured_estimator: expectation settings (exact, or
         shot-based with ``precision > 0``); one of the two is required
+        unless an ``evaluator`` is injected
     :param max_generations / max_circuit_evaluations / termination_criterion:
         at least one must be set
+    :param evaluator: a pluggable external evaluation backend
+        (``sim/external.py``): a ready ``BaseCircuitEvaluator`` instance or
+        a factory ``operator -> BaseCircuitEvaluator`` (needed when aux
+        operators should also be measured externally).  When set, every
+        fitness evaluation goes through it and the optimizers step on the
+        host; a configured sampler still samples the final distribution.
     :param distribution_alpha_tail: CVaR alpha of the sampler path
     :param initial_population: optional start population
     :param pack_min_layers: fixed lower bound of the packed layer dimension
-    :param checkpoint_path / resume_from_checkpoint / mesh / n_devices: not
-        ported yet (must be None)
+    :param checkpoint_path: when set, the full solver state (population,
+        operator RNG states, generation counter, evaluation ledger,
+        trajectory, best-so-far, the evaluator's shot counter) is written
+        there as JSON after every completed pipeline pass
+    :param resume_from_checkpoint: a checkpoint written through
+        ``checkpoint_path`` (by either package); the solve continues where
+        it stopped and reproduces the uninterrupted run's remaining
+        trajectory
+    :param mesh / n_devices: not ported yet (must be None)
     :param parameter_order: "canonical" or "qiskit" flat-parameter order
     :param reuse_selection_energies: selection reuses the exact final
         energies of the preceding last-layer search (None = on)
@@ -91,6 +112,7 @@ class EvolvingAnsatzMinimumEigensolverConfiguration:
     max_generations: Optional[int]
     max_circuit_evaluations: Optional[int]
     termination_criterion: Optional[EvolvingAnsatzMinimumEigensolverBaseTerminationCriterion]
+    evaluator: Optional[object] = None
     distribution_alpha_tail: float = 1.0
     initial_population: Optional[EVQEPopulation] = field(default=None)
     pack_min_layers: Optional[int] = None
@@ -112,10 +134,15 @@ class EvolvingAnsatzMinimumEigensolverConfiguration:
                 "no stopping condition configured: set max_generations, "
                 "max_circuit_evaluations and/or a termination_criterion"
             )
-        if self.configured_sampler is None and self.configured_estimator is None:
-            raise ValueError("provide a configured_sampler and/or a configured_estimator")
-        if self.checkpoint_path is not None or self.resume_from_checkpoint is not None:
-            raise NotImplementedError("checkpoint and resume are not ported yet")
+        if (
+            self.configured_sampler is None
+            and self.configured_estimator is None
+            and self.evaluator is None
+        ):
+            raise ValueError(
+                "provide a configured_sampler and/or a configured_estimator "
+                "(or inject an external evaluator)"
+            )
         if self.mesh is not None or self.n_devices is not None:
             raise NotImplementedError("the device mesh is not ported yet")
 
@@ -148,6 +175,8 @@ class EvolvingAnsatzMinimumEigensolver:
         """Like :meth:`compute_minimum_eigenvalue`, starting every circuit
         from ``initial_state`` (a [2^n] complex or [2, 2^n] re/im state, or
         an :class:`EVQEIndividual` preparing it; reference: :201-276)."""
+        if self.configuration.evaluator is not None:
+            return self._solve_with_injected_evaluator(operator, aux_operators, initial_state)
 
         def build_evaluator(op: PauliSum) -> BaseCircuitEvaluator:
             config = self.configuration
@@ -170,13 +199,93 @@ class EvolvingAnsatzMinimumEigensolver:
             aux_evaluators = [build_evaluator(op) for op in aux_operators]
         elif isinstance(aux_operators, dict):
             aux_evaluators = {key: build_evaluator(op) for key, op in aux_operators.items()}
+        return self._solve(evaluator, aux_evaluators, initial_state)
 
+    def _solve(self, evaluator, aux_evaluators, initial_state):
         from queasars_tpu_torch.genome.parameter_order import parameter_order
 
         with parameter_order(self.configuration.parameter_order):
             result = self._solve_by_evolution(evaluator, aux_evaluators)
         result.initial_state = initial_state
         return result
+
+    def _solve_with_injected_evaluator(
+        self, operator: PauliSum, aux_operators: ListOrDict, initial_state
+    ) -> EvolvingAnsatzMinimumEigensolverResult:
+        """Evolution driven by the configuration's injected external
+        evaluator (the reference's pluggable-primitive capability:
+        evolving_ansatz_minimum_eigensolver.py:227-251)."""
+        from queasars_tpu_torch.sim.external import resolve_injected_evaluator
+
+        if initial_state is not None:
+            raise CircuitEvaluatorException(
+                "initial_state cannot be combined with an injected external "
+                "evaluator: the external backend owns state preparation — "
+                "prepend the initial-state circuit inside your backend, or "
+                "use the internal engines"
+            )
+        config = self.configuration
+        injected = config.evaluator
+        evaluator = resolve_injected_evaluator(injected, operator, role="operator")
+        aux_evaluators: ListOrDict = None
+        if aux_operators is not None:
+            if isinstance(injected, BaseCircuitEvaluator) and (
+                config.configured_estimator is None and config.configured_sampler is None
+            ):
+                raise CircuitEvaluatorException(
+                    "aux_operators with an injected evaluator INSTANCE need "
+                    "either a factory callable (operator -> evaluator) as the "
+                    "evaluator, or a configured_estimator/configured_sampler "
+                    "for the aux evaluations"
+                )
+
+            def build_aux(op: PauliSum):
+                if not isinstance(injected, BaseCircuitEvaluator):
+                    return resolve_injected_evaluator(injected, op, role="aux operator")
+                if config.configured_estimator is not None:
+                    return StatevectorExpectationEvaluator(
+                        operator=op, precision=config.configured_estimator.precision or 0.0,
+                        seed=config.configured_estimator.seed, device=config.device,
+                    )
+                return SamplerExpectationEvaluator(
+                    operator=op, shots=config.configured_sampler.shots,
+                    alpha=config.distribution_alpha_tail, seed=config.configured_sampler.seed,
+                    device=config.device,
+                )
+
+            if isinstance(aux_operators, list):
+                aux_evaluators = [build_aux(op) for op in aux_operators]
+            else:
+                aux_evaluators = {k: build_aux(op) for k, op in aux_operators.items()}
+        return self._solve(evaluator, aux_evaluators, None)
+
+    def compute_minimum_function_value(
+        self,
+        operator: BitstringEvaluator,
+        aux_operators: ListOrDict = None,
+        initial_state: Union[np.ndarray, EVQEIndividual, None] = None,
+    ) -> EvolvingAnsatzMinimumEigensolverResult:
+        """Minimize a black-box bitstring objective over the configured
+        sampler's shots (reference: :278-329); the optimizers step on the
+        host against :class:`BitstringFunctionEvaluator`."""
+        config = self.configuration
+        if config.configured_sampler is None:
+            raise ValueError("compute_minimum_function_value requires a configured_sampler!")
+
+        def build_evaluator(op: BitstringEvaluator) -> BaseCircuitEvaluator:
+            return BitstringFunctionEvaluator(
+                bitstring_evaluator=op, shots=config.configured_sampler.shots,
+                alpha=config.distribution_alpha_tail, seed=config.configured_sampler.seed,
+                initial_state=initial_state, device=config.device,
+            )
+
+        evaluator = build_evaluator(operator)
+        aux_evaluators: ListOrDict = None
+        if isinstance(aux_operators, list):
+            aux_evaluators = [build_evaluator(op) for op in aux_operators]
+        elif isinstance(aux_operators, dict):
+            aux_evaluators = {key: build_evaluator(op) for key, op in aux_operators.items()}
+        return self._solve(evaluator, aux_evaluators, initial_state)
 
     # ------------------------------------------------------------------
     # the generation loop (reference: :331-478)
@@ -195,6 +304,43 @@ class EvolvingAnsatzMinimumEigensolver:
         population_evaluations: list[BasePopulationEvaluationResult] = []
         if self.configuration.termination_criterion is not None:
             self.configuration.termination_criterion.reset_state()
+
+        resume_state = None
+        if self.configuration.resume_from_checkpoint is not None:
+            from queasars_tpu_torch.solver.checkpoint import (
+                load_checkpoint,
+                restore_evaluator_state,
+                restore_operator_rng_states,
+            )
+
+            resume_state = load_checkpoint(self.configuration.resume_from_checkpoint)
+            n_circuit_evaluations = list(resume_state.n_circuit_evaluations)
+            n_generations = resume_state.n_generations
+            population_evaluations = list(resume_state.population_evaluations)
+            current_best_individual = resume_state.best_individual
+            current_best_expectation_value = resume_state.best_expectation_value
+            if resume_state.operator_rngs:
+                restore_operator_rng_states(
+                    self.configuration.evolutionary_operators, resume_state.operator_rngs
+                )
+            restore_evaluator_state(circuit_evaluator, resume_state.evaluator)
+            # replay the termination criterion over the restored trajectory
+            # so its internal windows match the uninterrupted run
+            if self.configuration.termination_criterion is not None:
+                replay_best_individual: Optional[EVQEIndividual] = None
+                replay_best_value: Optional[float] = None
+                for evaluation in population_evaluations:
+                    if (
+                        replay_best_value is None
+                        or evaluation.best_expectation_value < replay_best_value
+                    ):
+                        replay_best_individual = evaluation.best_individual
+                        replay_best_value = evaluation.best_expectation_value
+                    terminate = self.configuration.termination_criterion.check_termination(
+                        population_evaluation=evaluation,
+                        best_individual=replay_best_individual,
+                        best_expectation_value=replay_best_value,
+                    )
 
         def result_callback(evaluation_result: BasePopulationEvaluationResult) -> None:
             nonlocal current_best_individual, current_best_expectation_value
@@ -240,7 +386,9 @@ class EvolvingAnsatzMinimumEigensolver:
             energy_cache=PopulationEnergyCache() if reuse_energies else None,
         )
 
-        if self.configuration.initial_population is not None:
+        if resume_state is not None:
+            population = resume_state.population
+        elif self.configuration.initial_population is not None:
             population = self.configuration.initial_population
         else:
             population = self.configuration.population_initializer(circuit_evaluator.n_qubits)
@@ -275,6 +423,23 @@ class EvolvingAnsatzMinimumEigensolver:
                 population = operator.apply_operator(
                     population=population, operator_context=operator_context
                 )
+            else:
+                # one full pipeline pass completed: persist the whole solver
+                # state, so a crash resumes the exact trajectory
+                if self.configuration.checkpoint_path is not None:
+                    from queasars_tpu_torch.solver.checkpoint import write_checkpoint
+
+                    write_checkpoint(
+                        self.configuration.checkpoint_path,
+                        population=population,
+                        n_generations=n_generations,
+                        n_circuit_evaluations=n_circuit_evaluations,
+                        population_evaluations=population_evaluations,
+                        best_individual=current_best_individual,
+                        best_expectation_value=current_best_expectation_value,
+                        operators=self.configuration.evolutionary_operators,
+                        evaluator=circuit_evaluator,
+                    )
 
         if current_best_individual is None or len(population_evaluations) == 0:
             raise RuntimeError(

@@ -66,9 +66,16 @@ class EVQEMinimumEigensolverConfiguration:
     :param distribution_alpha_tail: CVaR alpha of the sampler path
     :param initial_population: optional start population
     :param pack_min_layers: fixed lower bound of the packed layer dimension
-    :param checkpoint_path / resume_from_checkpoint / mesh / n_devices: not
-        ported yet (must be None)
+    :param checkpoint_path / resume_from_checkpoint: write the full solver
+        state after every generation's pipeline pass / resume from such a
+        file (the driver configuration's knobs)
+    :param mesh / n_devices: not ported yet (must be None)
     :param device: where the solve runs (None = the CUDA device)
+    :param evaluator: a pluggable external evaluation backend -- a
+        ``BaseCircuitEvaluator`` instance or a factory ``operator ->
+        BaseCircuitEvaluator`` (``sim/external.py``); when set it drives
+        every fitness evaluation and makes the estimator and sampler
+        optional
     """
 
     configured_estimator: Optional[ConfiguredEstimator]
@@ -100,8 +107,27 @@ class EVQEMinimumEigensolverConfiguration:
     parameter_order: str = "canonical"
     reuse_selection_energies: Optional[bool] = None
     device: Optional[object] = None
+    evaluator: Optional[object] = None
 
     def __post_init__(self):
+        if (
+            self.max_generations is None
+            and self.max_circuit_evaluations is None
+            and self.termination_criterion is None
+        ):
+            raise ValueError(
+                "no stopping condition configured: set max_generations, "
+                "max_circuit_evaluations and/or a termination_criterion"
+            )
+        if (
+            self.configured_sampler is None
+            and self.configured_estimator is None
+            and self.evaluator is None
+        ):
+            raise ValueError(
+                "provide a configured_sampler and/or a configured_estimator "
+                "(or inject an external evaluator)"
+            )
         for name in (
             "parameter_search_probability",
             "topological_search_probability",
@@ -204,6 +230,7 @@ class EVQEMinimumEigensolver(EvolvingAnsatzMinimumEigensolver):
             parameter_order=configuration.parameter_order,
             reuse_selection_energies=configuration.reuse_selection_energies,
             device=configuration.device,
+            evaluator=configuration.evaluator,
         )
         super().__init__(configuration=config)
 

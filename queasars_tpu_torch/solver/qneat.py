@@ -19,10 +19,11 @@ generation tick, like the reference's EVQE selection):
   (evaluate + speciate + share + reproduce) -> QNEATAngleMutation ->
   QNEATAddGate
 
-Checkpointing (``checkpoint_path`` / ``resume_from_checkpoint``), the
-device mesh (``mesh`` / ``n_devices``) and amplitude sharding
-(``shard_amplitudes`` / ``amp_devices``) are not ported yet and raise
-``NotImplementedError``.
+``checkpoint_path`` / ``resume_from_checkpoint`` persist and restore the
+full solver state (a QNEAT population, operator RNGs, ledger, trajectory,
+evaluator randomness) exactly like the EVQE facade.  The device mesh
+(``mesh`` / ``n_devices``) and amplitude sharding (``shard_amplitudes`` /
+``amp_devices``) are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -75,8 +76,10 @@ class QNEATMinimumEigensolverConfiguration:
     :param randomize_initial_parameters: random vs zero initial angles
     :param pack_min_layers / distribution_alpha_tail: engine knobs (EVQE
         facade semantics)
-    :param checkpoint_path / resume_from_checkpoint / mesh / n_devices /
-        shard_amplitudes / amp_devices: not ported yet (must be None)
+    :param checkpoint_path / resume_from_checkpoint: full-state checkpoint
+        write / resume (EVQE facade semantics)
+    :param mesh / n_devices / shard_amplitudes / amp_devices: not ported
+        yet (must be None)
     :param device: where the solve runs (None = the CUDA device)
     """
 

@@ -1,9 +1,8 @@
 """Validated wrapper for black-box bitstring objective functions.
 
 Counterpart of ``queasars_tpu/utils/bitstring_evaluation.py`` (behavioral
-port of queasars/circuit_evaluation/bitstring_evaluation.py:7-57); host code.
-The JAX package's black-box evaluator that consumes it
-(``BitstringFunctionEvaluator``) is not ported yet.
+port of queasars/circuit_evaluation/bitstring_evaluation.py:7-57); host code,
+consumed by ``sim/evaluators.py::BitstringFunctionEvaluator``.
 """
 
 from __future__ import annotations

@@ -1134,3 +1134,110 @@ def test_autograd_gradients_on_the_card_match_float64(cuda_device):
     scale = float(table.abs().max())
     for simulate in (simulate_circuits, simulate_circuits_folded):
         assert float((gradient(simulate, torch.float32) - exact).abs().max()) <= 1e-6 * scale
+
+
+def _resume_config(generations, **kwargs):
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.solver import EVQEMinimumEigensolverConfiguration
+
+    settings = dict(
+        configured_estimator=None, configured_sampler=None, optimizer_n_circuit_evaluations=None,
+        max_circuit_evaluations=None, termination_criterion=None, random_seed=1,
+        population_size=8, speciation_genetic_distance_threshold=2, selection_alpha_penalty=0.1,
+        selection_beta_penalty=0.1, parameter_search_probability=0.3,
+        topological_search_probability=0.4, layer_removal_probability=0.05,
+        use_tournament_selection=True, tournament_size=2, pack_min_layers=4, device="cuda",
+    )
+    settings.update(kwargs)
+    return EVQEMinimumEigensolverConfiguration(
+        optimizer=BatchedNFT(NFTConfig(maxiter=6)), max_generations=generations, **settings)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["slot", "fold"])
+@pytest.mark.parametrize("path", ["exact", "sampler"])
+def test_resume_on_the_card_is_bit_identical(cuda_device, monkeypatch, tmp_path, route, path):
+    """At n=14 (P=8, NFT maxiter 6) a solve checkpointed after generation 2
+    and resumed to 3 equals the uninterrupted solve bit for bit on the
+    card, on each route, exact and with a 128-shot sampler (the shot-key
+    counter resumes the stream)."""
+    from queasars_tpu_torch.solver import (
+        ConfiguredEstimator,
+        ConfiguredSampler,
+        EVQEMinimumEigensolver,
+    )
+
+    if route == "slot":
+        monkeypatch.setenv("QUEASARS_MXU", "0")
+    else:
+        monkeypatch.delenv("QUEASARS_MXU", raising=False)
+    op = _diagonal_operator(14, 24, 5)
+    kwargs = (dict(configured_estimator=ConfiguredEstimator()) if path == "exact" else
+              dict(configured_sampler=ConfiguredSampler(shots=128, seed=3),
+                   distribution_alpha_tail=0.5))
+    checkpoint = str(tmp_path / "state.json")
+    EVQEMinimumEigensolver(_resume_config(3, checkpoint_path=checkpoint, **kwargs)
+                           ).compute_minimum_eigenvalue(op)
+    resumed = EVQEMinimumEigensolver(_resume_config(
+        4, resume_from_checkpoint=checkpoint, **kwargs)).compute_minimum_eigenvalue(op)
+    again = EVQEMinimumEigensolver(_resume_config(4, **kwargs)).compute_minimum_eigenvalue(op)
+    assert resumed.generations == again.generations == 4
+    trajectory = [(g.expectation_values, g.best_expectation_value)
+                  for g in resumed.population_evaluation_results]
+    assert trajectory == [(g.expectation_values, g.best_expectation_value)
+                          for g in again.population_evaluation_results]
+    assert resumed.circuit_evaluations == again.circuit_evaluations
+    assert resumed.eigenvalue == again.eigenvalue and resumed.eigenstate == again.eigenstate
+
+
+@pytest.mark.cuda
+def test_callback_energies_equal_the_internal_evaluator_on_the_card(cuda_device):
+    """A callback that rebinds each circuit and returns the internal
+    evaluator's energies on the card gives ``evaluate_packed``'s energies
+    (n=14, P=8, 4 layers) to 1e-6 * max|table|."""
+    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+    from queasars_tpu_torch.sim.external import CallbackCircuitEvaluator
+
+    op = _diagonal_operator(14, 24, 6)
+    internal = StatevectorExpectationEvaluator(op, device="cuda")
+    external = CallbackCircuitEvaluator(internal.evaluate_circuits, 14)
+    population = EVQEPopulation.random_population(14, 4, 8, True, random_seed=4)
+    packed = PackedPopulation.pack(list(population.individuals))
+    want = internal.evaluate_packed(packed)
+    got = external.evaluate_packed(packed)
+    assert np.abs(got - want).max() <= 1e-6 * float(internal._table.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [1.0, 0.5])
+def test_bitstring_evaluator_on_the_card_equals_the_cpu(cuda_device, monkeypatch, alpha):
+    """On the slot route the probabilities kernel's states equal the plain
+    version's bits, but its squared magnitudes round differently (4.7e-10
+    apart at n=20), so a draw on a bin boundary may flip: over successive
+    calls (n=14, P=8, 256 shots, equal keys) at least 99% of the card's
+    draws equal the CPU's, every other one a boundary draw; an individual
+    whose draws all agree has the CPU's value exactly, another one within
+    2 max|f| / (alpha shots) per flipped draw."""
+    import chip_smoke
+    from queasars_tpu_torch.sim.evaluators import BitstringFunctionEvaluator
+    from queasars_tpu_torch.sim.sampling import sample_indices
+    from queasars_tpu_torch.utils import BitstringEvaluator, prng
+
+    monkeypatch.setenv("QUEASARS_MXU", "0")
+    values = np.random.default_rng(8).normal(size=1 << 14)
+    function = BitstringEvaluator(14, lambda bits: float(values[int(bits, 2)]))
+    population = EVQEPopulation.random_population(14, 4, 8, True, random_seed=6)
+    packed = PackedPopulation.pack(list(population.individuals))
+    card, cpu = (BitstringFunctionEvaluator(function, 256, alpha, seed=2, device=device)
+                 for device in ("cuda", "cpu"))
+    probs, plain = card.probabilities(packed), cpu.probabilities(packed)
+    for call in (1, 2, 3):
+        keys = prng.split(prng.fold_in(prng.PRNGKey(2), call), packed.n_individuals)
+        drawn, drawn_plain = (sample_indices(keys, p, 256).cpu() for p in (probs, plain))
+        share, not_boundary = chip_smoke.draw_agreement(
+            plain, prng.uniform(keys, (256,)), drawn, drawn_plain)
+        assert share >= 0.99 and not_boundary == 0, (share, not_boundary)
+        flips = (drawn != drawn_plain).sum(dim=1).numpy()
+        got, want = card.evaluate_packed(packed), cpu.evaluate_packed(packed)
+        assert card._counter == cpu._counter == call
+        assert np.all(np.abs(got - want) <= flips * 2 * np.abs(values).max() / (alpha * 256))

@@ -1,9 +1,11 @@
 """The port reaches neither JAX nor the JAX package: in a fresh process with
-``jax`` and ``queasars_tpu`` blocked, every module of ``queasars_tpu_torch``
-(the optimizers, the gradient optimizer, MoG-VQE, QAOA, ADAPT-VQE, QNEAT,
-the QUBO encoders and the exact JSSP oracle among them) and
-``chip_smoke`` (not run) import, and ``chip_smoke`` refuses to run
-without a CUDA device."""
+``jax``, ``queasars_tpu`` and ``matplotlib`` blocked, every module of
+``queasars_tpu_torch`` (the optimizers, the gradient optimizer, MoG-VQE,
+QAOA, ADAPT-VQE, QNEAT, the QUBO encoders, the exact JSSP oracle, the
+command line ``__main__``, the external evaluators, the JSON and QASM
+codecs, checkpoints, profiling and the two plotting modules, which import
+matplotlib only when they draw, among them) and ``chip_smoke`` (not run)
+import, and ``chip_smoke`` refuses to run without a CUDA device."""
 
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 BLOCKED_IMPORT = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "queasars_tpu"):
+for name in ("jax", "jaxlib", "queasars_tpu", "matplotlib"):
     sys.modules[name] = None
 import queasars_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(queasars_tpu_torch.__path__, "queasars_tpu_torch.")]
@@ -25,12 +27,16 @@ required = ["queasars_tpu_torch." + m for m in (
     "optim.spsa", "optim.spsa_termination", "optim.cobyla", "evolve.multiobjective",
     "solver.mog_vqe", "optim.gradient", "sim.qaoa", "solver.qaoa", "solver.adapt_vqe",
     "genome.qneat", "evolve.qneat", "solver.qneat", "problems.qubo",
-    "problems.jssp.exact_solver", "utils.bitstring_evaluation")]
+    "problems.jssp.exact_solver", "utils.bitstring_evaluation", "__main__", "sim.external",
+    "genome.serialization", "genome.qasm", "problems.jssp.serialization", "solver.serialization",
+    "solver.checkpoint", "utils.profiling", "solver.visualization",
+    "problems.jssp.visualization")]
 assert set(required) <= set(names), sorted(set(required) - set(names))
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "queasars_tpu")
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "queasars_tpu", "matplotlib")
                 and sys.modules[m] is not None)
 assert not leaked, leaked
 print("imported", len(names))

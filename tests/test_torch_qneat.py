@@ -204,8 +204,7 @@ def test_solve_matches_jax_generation_by_generation(polish):
 
 def test_unported_knobs_are_refused():
     base = dict(configured_estimator=ConfiguredEstimator(), **_settings(None))
-    for knob in (dict(amp_devices=2), dict(shard_amplitudes=True), dict(n_devices=2),
-                 dict(checkpoint_path="x")):
+    for knob in (dict(amp_devices=2), dict(shard_amplitudes=True), dict(n_devices=2)):
         with pytest.raises(NotImplementedError):
             QNEATMinimumEigensolver(QNEATMinimumEigensolverConfiguration(**base, **knob))
     with pytest.raises(ValueError):

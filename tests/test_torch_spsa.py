@@ -288,13 +288,22 @@ def test_host_stepped_search_stops_each_individual_where_its_checker_does(jssp):
 
 
 def test_evaluator_without_operands_is_refused():
+    """An evaluator without objective operands is no longer refused: it
+    takes the host-stepped loop (``BatchedSPSA._minimize_host``), one
+    ``evaluate_packed`` call per probe and a final one, and no minimize_slots
+    (tests/test_torch_external.py holds the loop against the JAX package's)."""
     class External:
+        calls = 0
+
         def evaluate_packed(self, packed, angles=None):
+            External.calls += 1
             return np.zeros(packed.n_individuals)
 
     p, _, coords, n_free, active, _ = _last_layer_problem()
-    with pytest.raises(NotImplementedError, match="sim/external.py"):
-        BatchedSPSA(SPSAConfig(maxiter=2)).minimize(External(), p, coords, n_free, active)
+    optimizer = BatchedSPSA(SPSAConfig(maxiter=2, calibration_steps=3))
+    angles, energies, nfev = optimizer.minimize(External(), p, coords, n_free, active)
+    assert nfev == External.calls == 2 * 3 + 2 * 2 + 1
+    assert angles.shape == p.angles.shape and energies.shape == (p.n_individuals,)
 
 
 def test_cobyla_matches_jax(jssp):
