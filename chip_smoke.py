@@ -148,11 +148,28 @@ with elapsed seconds:
    generations), the objective called once per distinct state;
 26. ``utils/profiling.trace`` around config 4's slot solve with selection
    inside ``annotate("selection")``: the exported trace names ``slot_pass``
-   and the annotation once per generation.
+   and the annotation once per generation;
+27. the population mesh's primitives at ``bench.py``'s shape (n=20, P=32,
+   5 layers, 512 terms) on ``population_mesh()`` (every visible card) and
+   on four blocks of the first card, per route:
+   ``sharded_population_energies`` bit-equal to the unsharded row 1 / row 6
+   call, ``sharded_training_step`` (4 NFT steps) bit-equal on both meshes;
+28. config 4 per route and config 3's sampler solve (slot route),
+   unsharded, on ``population_mesh()`` and on four blocks: the two meshes'
+   trajectories equal bit for bit, each mesh solve launching its route's
+   kernels (the prefix cache is off under a mesh, so no sweep);
+29. two processes on the card joined by ``torch.distributed`` on gloo (both
+   ranks on the first card), each solving config 4 on the slot route over
+   the two-process mesh (generations cut 4 -> 2, printed as ``reduced``):
+   both ranks equal the one-process two-block solve bit for bit;
+30. ADAPT-VQE (b)'s first pool screen on four blocks equal to the unsharded
+   screen bit for bit; ``python -m queasars_tpu_torch solve --n-devices 1``
+   on config 4 (slot route) equal to the ``population_mesh(1)`` solve.
 
 Phases 12-15 print their solve seconds, evaluations per second, the card's
 name and power limit, and their launches per kernel row; phases 17-26 also
-their peak device memory.
+their peak device memory; phases 27-30 report their launch counts apart
+from the earlier phases'.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -1389,12 +1406,12 @@ class _GenerationClock:
         return False
 
 
-def baseline_solver(optimizer, settings, clock=None, penalty=0.1, mog=False):
+def baseline_solver(optimizer, settings, clock=None, penalty=0.1, mog=False, mesh=None):
     """An exact-estimator solver under the repository's ``evqe_config``
     (experiments/exp_baseline_configs.py:64-83) on the card: ``settings``
     gives population, generations, seed and optionally ``pack_min_layers``;
     ``penalty`` both selection penalties; ``mog`` the MoG-VQE facade;
-    ``clock`` is its termination criterion."""
+    ``clock`` is its termination criterion; ``mesh`` a population mesh."""
     from queasars_tpu_torch.solver import (
         ConfiguredEstimator,
         EVQEMinimumEigensolver,
@@ -1421,22 +1438,25 @@ def baseline_solver(optimizer, settings, clock=None, penalty=0.1, mog=False):
         layer_removal_probability=0.05,
         pack_min_layers=settings.get("pack_min_layers"),
         device=DEVICE,
+        mesh=mesh,
     ))
 
 
-def config4_solver(clock=None):
+def config4_solver(clock=None, mesh=None, settings=SOLVE):
     """The EVQE solver of the repository's config 4
     (experiments/exp_baseline_configs.py:64-83, 143-151) on the card;
-    ``clock`` is its termination criterion."""
+    ``clock`` is its termination criterion, ``mesh`` a population mesh."""
     from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
 
-    return baseline_solver(BatchedNFT(NFTConfig(maxiter=SOLVE["maxiter"])), SOLVE, clock)
+    return baseline_solver(BatchedNFT(NFTConfig(maxiter=settings["maxiter"])), settings, clock,
+                           mesh=mesh)
 
 
-def config3_solver(clock=None):
+def config3_solver(clock=None, mesh=None):
     """The EVQE solver of the repository's config 3
     (experiments/exp_baseline_configs.py:64-83, 128-141) on the card: a
-    512-shot sampler, no estimator, CVaR 0.5, tournament selection."""
+    512-shot sampler, no estimator, CVaR 0.5, tournament selection;
+    ``mesh`` a population mesh."""
     from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
     from queasars_tpu_torch.solver import (
         ConfiguredSampler,
@@ -1465,6 +1485,7 @@ def config3_solver(clock=None):
         distribution_alpha_tail=CONFIG3["alpha"],
         pack_min_layers=CONFIG3["pack_min_layers"],
         device=DEVICE,
+        mesh=mesh,
     ))
 
 
@@ -2831,6 +2852,333 @@ def phase_profiling(card, hamiltonian):
     require(selections == result.generations, "the trace lacks the selection annotations")
 
 
+# ---------------------------------------------------------------------------
+# the population mesh (phases 27-30)
+# ---------------------------------------------------------------------------
+
+#: blocks of the one-card mesh the mesh phases split the population into
+MESH_BLOCKS = 4
+#: the two-process phase: config 4 on the slot route, 4 generations cut to 2
+MULTIHOST4 = dict(SOLVE, generations=2)
+#: how long each process of the two-process phase may take
+WORKER_TIMEOUT_S = 300
+#: the kernels a mesh solve must launch: the searches' full-circuit
+#: objective (the prefix cache is off under a mesh, so no sweep runs), the
+#: per-slot search's prefix states (row 2 on both routes at n <= 20) and the
+#: final distribution; the sampler solve its sampled kernel instead
+MESH_ROUTE_KERNELS = {
+    "config 4 slot": ("energies_exact", "population_states", "population_probs"),
+    "config 4 fold": ("energies_exact_folded", "population_states", "population_probs_folded"),
+    "config 3 sampler slot": ("sampled_shot_indices", "population_states", "population_probs"),
+}
+#: the command line's EVQE settings (queasars_tpu_torch/__main__.py)
+CLI_EVQE = dict(penalties=(0.1, 0.05), parameter_search=0.4, topological=0.5, removal=0.1,
+                tournament_size=2)
+
+
+def card_meshes():
+    """The two meshes of the mesh phases: ``population_mesh()`` (every
+    visible card, one block each) and ``MESH_BLOCKS`` blocks on the first
+    card."""
+    from queasars_tpu_torch.parallel import population_mesh
+
+    return {"population_mesh()": population_mesh(),
+            f"{MESH_BLOCKS} blocks on one card": population_mesh(
+                devices=[f"{DEVICE}:0"] * MESH_BLOCKS)}
+
+
+def trajectory(result) -> dict:
+    """A solve's trajectory, JSON-able: every generation's energies, the
+    ledger, the eigenvalue and the best individual."""
+    return {
+        "energies": [[None if v is None else float(v) for v in g.expectation_values]
+                     for g in result.population_evaluation_results],
+        "evaluations": [int(v) for v in result.circuit_evaluations],
+        "eigenvalue": float(result.eigenvalue),
+        "best_individual": repr(result.best_individual),
+    }
+
+
+def all_coordinates(packed):
+    """Every individual's free coordinates [P, K, 3], padded with zeros, and
+    their counts [P]."""
+    import numpy as np
+
+    width = int(packed.n_params.max())
+    coords = np.stack([
+        np.pad(packed.param_coordinates(i), ((0, width - packed.n_params[i]), (0, 0)))
+        for i in range(packed.n_individuals)
+    ])
+    return coords, np.asarray(packed.n_params)
+
+
+def phase_mesh_primitives(card, w):
+    """Phase 27: ``sharded_population_energies`` and ``sharded_training_step``
+    at bench.py's shape on each mesh and route, bit-equal to the unsharded
+    row 1 / row 6 call and to each other."""
+    import numpy as np
+    import torch
+
+    from queasars_tpu_torch.genome import EVQEPopulation, PackedPopulation
+    from queasars_tpu_torch.parallel import sharded_population_energies, sharded_training_step
+
+    n = N_QUBITS
+    population = EVQEPopulation.random_population(
+        n, BENCH["layers"], BENCH["population"], True, random_seed=0)
+    packed = PackedPopulation.pack(list(population.individuals), min_layers=BENCH["layers"])
+    coords, n_free = all_coordinates(packed)
+    active = np.ones(packed.n_individuals, bool)
+    table = w.bench_table
+    meshes = card_meshes()
+    for route in ("slot", "fold"):
+        use_route(route)
+        reset_launch_counts()
+        start = time.perf_counter()
+        plain = row_energies(packed, None, table, n, route).cpu().numpy()
+        torch.cuda.synchronize()
+        say(f"phase mesh energies ({route} route, n={n}, P={packed.n_individuals}, "
+            f"{BENCH['layers']} layers, {BENCH['terms']} terms): unsharded row "
+            f"{1 if route == 'slot' else 6} call {time.perf_counter() - start:.4f} s | {card} "
+            f"| launches per row {per_row(launch_counts())}")
+        steps = {}
+        for label, mesh in meshes.items():
+            reset_launch_counts()
+            start = time.perf_counter()
+            got = sharded_population_energies(mesh, packed, table)
+            seconds = time.perf_counter() - start
+            say(f"  {label} ({mesh.size} block(s)): {seconds:.4f} s, launches per row "
+                f"{per_row(launch_counts())}, equal bits to the unsharded call: "
+                f"{bool(np.array_equal(got, plain))}")
+            require(np.array_equal(got, plain),
+                    f"sharded energies on {label} ({route}) differ from the unsharded call by "
+                    f"{float(np.abs(got - plain).max()):.3e}")
+            reset_launch_counts()
+            start = time.perf_counter()
+            steps[label] = sharded_training_step(mesh, packed, table, coords, n_free, active)
+            say(f"  {label}: training step (NFT maxiter 4) {time.perf_counter() - start:.4f} s, "
+                f"mean energy {float(plain.mean()):.6f} -> {float(steps[label][1].mean()):.6f}, "
+                f"launches per row {per_row(launch_counts())}")
+        (a1, e1), (a4, e4) = steps.values()
+        require(np.array_equal(a1, a4) and np.array_equal(e1, e4),
+                f"the training step differs across the meshes on the {route} route")
+        require(e1.mean() < plain.mean(), "the training step did not lower the energies")
+        say(f"  check: the training step is bit-equal on both meshes ({route} route)")
+
+
+def phase_mesh_solves(card, hamiltonian, hamiltonian3):
+    """Phase 28: config 4 per route and config 3's sampler solve (slot
+    route) unsharded, on ``population_mesh()`` and on four blocks of one
+    card; the two meshes' trajectories must be equal bit for bit."""
+    meshes = card_meshes()
+    cases = [("config 4", route, config4_solver, hamiltonian) for route in ("slot", "fold")]
+    cases.append(("config 3 sampler", "slot", config3_solver, hamiltonian3))
+    for name, route, make, operator in cases:
+        use_route(route)
+        runs = {}
+        for label, mesh in [("unsharded", None), *meshes.items()]:
+            result, seconds, launches = timed_solve(make(mesh=mesh), operator)
+            solve_line(f"mesh {name} ({route} route, {label})", result, seconds, card, launches)
+            runs[label] = trajectory(result)
+            if mesh is None:
+                continue
+            for kernel in MESH_ROUTE_KERNELS[f"{name} {route}"]:
+                require(launches[kernel] > 0, f"{name} on {label} did not launch {kernel}")
+            require(not launches["nft_layer_sweep"] and not launches["nft_layer_sweep_folded"],
+                    f"a sweep kernel ran in {name}'s mesh solve (the prefix cache is off)")
+            if route == "slot":
+                require(not any(launches[k] for k in ROUTE_KERNELS["fold"]),
+                        f"a fold kernel ran in {name}'s slot-route mesh solve")
+        one, four = (runs[label] for label in meshes)
+        require(one == four, f"{name} ({route} route): the mesh trajectories differ")
+        say(f"  check: {name} ({route} route) gives equal trajectories on both meshes "
+            f"(eigenvalue {one['eigenvalue']:.6f}; unsharded {runs['unsharded']['eigenvalue']:.6f}"
+            f", which caches prefixes the mesh does not)")
+
+
+MULTIHOST_WORKER = """
+import sys
+import chip_smoke
+sys.exit(chip_smoke.multihost_worker(sys.argv[1], int(sys.argv[2])))
+"""
+
+
+def multihost_worker(address: str, rank: int) -> int:
+    """One process of phase 29: join the two-process group, solve config 4
+    (cut) on the slot route over ``population_mesh()``, print the
+    trajectory."""
+    import torch
+
+    from queasars_tpu_torch.parallel import initialize_multihost, population_mesh, process_info
+
+    initialize_multihost(coordinator_address=address, num_processes=2, process_id=rank)
+    try:
+        mesh = population_mesh()
+        _, encoder, hamiltonian = jssp_with_qubits(3, 3, 6, N_QUBITS, {1: 0.5, 2: 0.5})
+        use_route("slot")
+        result, seconds, launches = timed_solve(
+            config4_solver(mesh=mesh, settings=MULTIHOST4), hamiltonian)
+        print("RESULT" + json.dumps({
+            "rank": rank, "process_info": list(process_info()), "blocks": mesh.size,
+            "seconds": seconds, "launches": per_row(launches),
+            "trajectory": trajectory(result)}), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_multihost(card, hamiltonian):
+    """Phase 29: two processes on the card (gloo, both ranks on the first
+    card) solve config 4 (slot route, 2 generations) over the two-process
+    mesh; both must equal the one-process two-block solve."""
+    import os
+    import socket
+
+    from queasars_tpu_torch.parallel import population_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root, "QUEASARS_MXU": "0"}
+    start = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", MULTIHOST_WORKER, f"localhost:{port}",
+                               str(rank)], cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    outputs = []
+    try:
+        for proc in procs:
+            outputs.append(proc.communicate(timeout=WORKER_TIMEOUT_S))
+    except subprocess.TimeoutExpired:
+        raise Failure("a process of the two-process phase timed out")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    seconds = time.perf_counter() - start
+    payloads = {}
+    for rank, (proc, (out, err)) in enumerate(zip(procs, outputs)):
+        require(proc.returncode == 0, f"rank {rank} exited {proc.returncode}: {err[-1500:]}")
+        for line in out.splitlines():
+            if line.startswith("RESULT"):
+                payloads[rank] = json.loads(line[len("RESULT"):])
+    require(set(payloads) == {0, 1}, "a rank printed no result")
+    use_route("slot")
+    result, local_seconds, launches = timed_solve(
+        config4_solver(mesh=population_mesh(devices=[f"{DEVICE}:0"] * 2), settings=MULTIHOST4),
+        hamiltonian)
+    local = trajectory(result)
+    for rank in (0, 1):
+        p = payloads[rank]
+        say(f"phase two processes (gloo, rank {rank} of {p['process_info'][1]}, "
+            f"{p['blocks']} blocks): config 4 slot route {MULTIHOST4['generations']} "
+            f"generations in {p['seconds']:.3f} s, eigenvalue "
+            f"{p['trajectory']['eigenvalue']:.6f} | {card} | launches per row {p['launches']}")
+        require(p["trajectory"] == local, f"rank {rank}'s trajectory differs from the "
+                                          f"one-process two-block solve")
+    solve_line("one process, 2 blocks (the comparison)", result, local_seconds, card, launches)
+    say(f"  check: both ranks equal the one-process two-block trajectory bit for bit "
+        f"({seconds:.1f} s with both processes' start); reduced: config 4's "
+        f"{SOLVE['generations']} generations cut to {MULTIHOST4['generations']}")
+
+
+def cli_solver(mesh):
+    """The command line's EVQE solve (``queasars_tpu_torch/__main__.py``) on
+    config 4's settings, with ``mesh``."""
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.solver import (
+        ConfiguredEstimator,
+        ConfiguredSampler,
+        EVQEMinimumEigensolver,
+        EVQEMinimumEigensolverConfiguration,
+    )
+
+    return EVQEMinimumEigensolver(EVQEMinimumEigensolverConfiguration(
+        configured_estimator=ConfiguredEstimator(),
+        configured_sampler=ConfiguredSampler(shots=2048, seed=CLI4["seed"]),
+        optimizer=BatchedNFT(NFTConfig(maxiter=CLI4["nft_maxiter"])),
+        optimizer_n_circuit_evaluations=None,
+        max_generations=CLI4["generations"],
+        max_circuit_evaluations=None,
+        termination_criterion=None,
+        random_seed=CLI4["seed"],
+        population_size=CLI4["population"],
+        speciation_genetic_distance_threshold=2,
+        selection_alpha_penalty=CLI_EVQE["penalties"][0],
+        selection_beta_penalty=CLI_EVQE["penalties"][1],
+        parameter_search_probability=CLI_EVQE["parameter_search"],
+        topological_search_probability=CLI_EVQE["topological"],
+        layer_removal_probability=CLI_EVQE["removal"],
+        use_tournament_selection=True,
+        tournament_size=CLI_EVQE["tournament_size"],
+        device=DEVICE,
+        mesh=mesh,
+    ))
+
+
+def phase_mesh_adapt_and_cli(card, hamiltonian, instance_path, makespan):
+    """Phase 30: ADAPT-VQE (b)'s first screen on four blocks of the card
+    equals the unsharded screen bit for bit; then ``python -m
+    queasars_tpu_torch solve --n-devices 1`` on config 4 equals the
+    ``population_mesh(1)`` solve."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from queasars_tpu_torch.parallel import population_mesh
+    from queasars_tpu_torch.paulis import diagonal_energy_table
+    from queasars_tpu_torch.solver.adapt_vqe import _build_pool, screen_pool, screen_pool_sharded
+
+    n = hamiltonian.n_qubits
+    pool = _build_pool(n, ADAPT_JSSP["pool"])
+    plus = torch.full((2, 1 << n), float(np.float32(2.0 ** (-n / 2.0))), device=DEVICE)
+    plus[1] = 0.0
+    table = diagonal_energy_table(hamiltonian, dtype=torch.float32, device=DEVICE)
+    start = time.perf_counter()
+    single = screen_pool(plus, *pool[:3], table, n, True)
+    single_s = time.perf_counter() - start
+    mesh = card_meshes()[f"{MESH_BLOCKS} blocks on one card"]
+    reset_launch_counts()
+    start = time.perf_counter()
+    sharded = screen_pool_sharded(mesh, plus, *pool[:3], table, n, True)
+    sharded_s = time.perf_counter() - start
+    say(f"phase mesh ADAPT-VQE (b) screen ({len(pool[3])} candidates, n={n}): unsharded "
+        f"{single_s:.3f} s, {mesh.size} blocks {sharded_s:.3f} s, equal bits "
+        f"{bool(np.array_equal(single, sharded))}, largest |g| {np.abs(single).max():.6f} | "
+        f"{card} | launches per row {per_row(launch_counts())}")
+    require(np.array_equal(single, sharded), "the sharded ADAPT screen differs from the "
+            f"unsharded one by {float(np.abs(single - sharded).max()):.3e}")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    command = [sys.executable, "-m", "queasars_tpu_torch", "solve", "--jssp", instance_path,
+               "--makespan-limit", str(makespan), "--population", str(CLI4["population"]),
+               "--nft-maxiter", str(CLI4["nft_maxiter"]), "--seed", str(CLI4["seed"]),
+               "--generations", str(CLI4["generations"]), "--n-devices", "1"]
+    env = {**os.environ, "PYTHONPATH": root, "QUEASARS_MXU": "0"}
+    start = time.perf_counter()
+    proc = subprocess.run(command, cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - start
+    require(proc.returncode == 0, f"the --n-devices 1 solve exited {proc.returncode}: "
+                                  f"{proc.stderr[-1500:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    use_route("slot")
+    result, local_seconds, launches = timed_solve(cli_solver(population_mesh(1)), hamiltonian)
+    say(f"phase CLI --n-devices 1 (config 4, slot route, {summary['generations']} generations): "
+        f"{seconds:.3f} s with the process start; population_mesh(1) in process "
+        f"{local_seconds:.3f} s, eigenvalue {result.eigenvalue:.6f} | {card} | launches per row "
+        f"{per_row(launches)}")
+    likeliest = max(result.eigenstate, key=result.eigenstate.get)
+    ours = {"best_per_generation": [g.best_expectation_value
+                                    for g in result.population_evaluation_results],
+            "eigenvalue": result.eigenvalue, "circuit_evaluations": result.circuit_evaluations,
+            "likeliest_state": likeliest}
+    for key, value in ours.items():
+        require(summary[key] == value, f"--n-devices 1's {key} {summary[key]} differs from the "
+                                       f"population_mesh(1) solve's {value}")
+    say("  check: the CLI's --n-devices 1 summary equals the population_mesh(1) solve")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(BUDGET_S, exit=True)
     try:
@@ -2908,6 +3256,10 @@ def main() -> int:
         phase_external(card, hamiltonian, table)
         phase_function_value(card, hamiltonian3)
         phase_profiling(card, hamiltonian)
+        phase_mesh_primitives(card, workload)
+        phase_mesh_solves(card, hamiltonian, hamiltonian3)
+        phase_multihost(card, hamiltonian)
+        phase_mesh_adapt_and_cli(card, hamiltonian, instance_path, encoder.makespan_limit)
     except Failure as failure:
         say(f"FAILED: {failure}")
         return 1

@@ -13,8 +13,9 @@ route (``QUEASARS_MXU=0``); NFT, SPSA, COBYLA and gradient descent; QNEAT,
 ADAPT-VQE and QAOA; the JSSP, spin-chain and QUBO-family problem encoders;
 external evaluation backends and black-box bitstring objectives; the JSON
 and OpenQASM codecs, full-state checkpoint and resume, profiling, plots and
-the command line (``python -m queasars_tpu_torch solve``).  ROADMAP.md
-lists what follows (the device mesh and amplitude sharding).
+the command line (``python -m queasars_tpu_torch solve``); the population
+mesh and its multi-process runtime (``parallel``).  ROADMAP.md lists what
+follows (amplitude sharding).
 """
 
 __version__ = "0.1.0"

@@ -4,8 +4,10 @@ Counterpart of ``queasars_tpu/__main__.py`` with its flags and summary
 line, except two: ``--device`` replaces ``--platform`` (the card by
 default, ``cpu`` for the kernels' plain versions), and there is no
 ``--use-pallas``, because on the card the port always runs its CUDA
-kernels.  ``--n-devices`` and ``--shard-amplitudes`` exit with a message:
-the device mesh is not ported yet.
+kernels.  ``--n-devices N`` splits an EVQE solve's population over
+``population_mesh(N)`` (with ``--device cpu``, over N CPU blocks);
+``--shard-amplitudes`` exits with a message: amplitude sharding is not
+ported yet.
 
 Load a JSSP instance (JSON, the wire-compatible codec) or a QUBO (.npy
 matrix / JSON), run EVQE or QNEAT with checkpointing, and write the full
@@ -56,7 +58,7 @@ def _build_parser() -> argparse.ArgumentParser:
     solve.add_argument("--pack-min-layers", type=int, default=None)
     solve.add_argument(
         "--n-devices", type=int, default=None,
-        help="population-mesh width (not ported yet: exits with a message)",
+        help="population-mesh width (EVQE only; with --device cpu, that many CPU blocks)",
     )
     solve.add_argument(
         "--shard-amplitudes", action="store_true",
@@ -128,13 +130,13 @@ def _solve(args) -> int:
         EVQEMinimumEigensolverConfiguration,
     )
 
-    if args.n_devices or args.shard_amplitudes:
-        raise SystemExit(
-            "--n-devices and --shard-amplitudes need the device mesh, which the port "
-            "does not have yet"
-        )
     if args.resume and not args.checkpoint:
         raise SystemExit("--resume requires --checkpoint")
+    if args.algorithm == "qneat" and (args.shard_amplitudes or args.n_devices):
+        raise SystemExit("mesh options are EVQE-only in the CLI for now")
+    if args.shard_amplitudes:
+        raise SystemExit("--shard-amplitudes needs amplitude sharding, which the port "
+                         "does not have yet")
     hamiltonian, describe = _load_hamiltonian(args)
     if args.algorithm == "qneat":
         from queasars_tpu_torch.solver import (
@@ -179,6 +181,7 @@ def _solve(args) -> int:
         tournament_size=2,
         distribution_alpha_tail=args.alpha_tail,
         pack_min_layers=args.pack_min_layers,
+        n_devices=args.n_devices,
         checkpoint_path=args.checkpoint,
         resume_from_checkpoint=args.checkpoint if args.resume else None,
         device=args.device,

@@ -29,6 +29,10 @@ a shot-sampled objective raises, as there.
 Ledger: one step costs a forward and a backward pass, charged as 2
 reference-equivalent evaluations (``GradientDescentConfig.
 n_circuit_evaluations``).
+
+Under a population mesh (the evaluator's ``mesh``, ``parallel/mesh.py``)
+both searches run block by block on the mesh's devices, as the reference's
+two dispatch sites do; the prefix cache is off under a mesh.
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ from queasars_tpu_torch.optim.prefix import (
     prefix_mask,
     simulate_prefix_states,
 )
-from queasars_tpu_torch.sim.evaluators import packed_tensors
+from queasars_tpu_torch.parallel.mesh import operand_device, run_batched
+from queasars_tpu_torch.sim.evaluators import expand_initial, packed_tensors
 from queasars_tpu_torch.sim.expectation import (
     DenseHermitian,
     cvar_expectation_from_probs,
@@ -223,6 +228,10 @@ class _Objective:
         theta = theta.detach().requires_grad_(True)
         with torch.enable_grad():
             loss = self.energies(self.shifted(angles, theta * self.coord_mask), fold).sum()
+            if not loss.requires_grad:
+                # no slot is filled in this batch (a mesh block of padding):
+                # every energy is constant in theta
+                return torch.zeros_like(theta)
             (grad,) = torch.autograd.grad(loss, theta)
         return grad
 
@@ -296,36 +305,49 @@ class BatchedGradientDescent:
         if coords.shape[1] == 0 or not np.any(np.logical_and(active, n_free > 0)):
             return np.asarray(a), np.asarray(evaluator.evaluate_packed(packed, angles=a)), 0
         operands = _operands(evaluator, strict=True)
-        device = evaluator.device
-        gt, ctrl, ang, lm = packed_tensors(packed, a, device)
-        initial = evaluator.initial_states(packed.n_individuals)
-        coords_t = torch.as_tensor(coords, dtype=torch.long, device=device)
+        mesh = getattr(evaluator, "mesh", None)
+        where = operand_device(mesh, evaluator.device)
+        n = packed.n_qubits
+        gt, ctrl, ang, lm = packed_tensors(packed, a, where)
+        coords_t = torch.as_tensor(coords, dtype=torch.long, device=where)
         coord_mask = torch.as_tensor(
             np.arange(coords.shape[1])[None, :] < np.asarray(n_free)[:, None],
-            dtype=torch.float32, device=device,
+            dtype=torch.float32, device=where,
         )
-        active_t = torch.as_tensor(active, dtype=torch.bool, device=device)
-        transform = None
-        if prefix_enabled(cfg.cache_prefix, operands, last_layer):
+        active_t = torch.as_tensor(active, dtype=torch.bool, device=where)
+        fold = bool(cfg.use_fold)
+
+        def descend(structure, initial, ang, crd, cm, act, ops):
+            objective = _Objective(ops, n, structure, initial, crd, cm, ang.shape)
+            theta = objective.descend(ang, act.to(torch.float32)[:, None] * cm, cfg, fold)
+            with torch.no_grad():
+                out = objective.shifted(ang, theta * cm)
+                out = torch.where(act[:, None, None, None], out, ang)
+                return out, objective.energies(out, fold)
+
+        if prefix_enabled(cfg.cache_prefix, operands, mesh, last_layer):
             with torch.no_grad():
                 transform = build_prefix_transform(
-                    gt, ctrl, ang, lm, coords_t, last_layer, packed.n_qubits, initial
+                    gt, ctrl, ang, lm, coords_t, last_layer, n,
+                    evaluator.initial_states(packed.n_individuals),
                 )
-            structure = (transform.gate_types, transform.controls, transform.layer_mask)
-            ang, coords_t, initial = transform.angles, transform.coords, transform.initial_state
-        else:
-            structure = (gt, ctrl, lm)
-        fold = bool(cfg.use_fold)
-        objective = _Objective(operands, packed.n_qubits, structure, initial, coords_t,
-                               coord_mask, ang.shape)
-        act = active_t.to(torch.float32)[:, None] * coord_mask
-        theta = objective.descend(ang, act, cfg, fold)
-        with torch.no_grad():
-            out = objective.shifted(ang, theta * coord_mask)
-            out = torch.where(active_t[:, None, None, None], out, ang)
-            energies = objective.energies(out, fold)
-        if transform is not None:
+            out, energies = descend(
+                (transform.gate_types, transform.controls, transform.layer_mask),
+                transform.initial_state, transform.angles, transform.coords, coord_mask,
+                active_t, operands,
+            )
             out = transform.merge(out)
+        else:
+            def full(pa, ra):
+                gt, ctrl, ang, lm, crd, cm, act = pa
+                shared, ops = ra
+                return descend((gt, ctrl, lm), expand_initial(shared, gt.shape[0]), ang, crd,
+                               cm, act, ops)
+
+            out, energies = run_batched(
+                mesh, full, (gt, ctrl, ang, lm, coords_t, coord_mask, active_t),
+                (evaluator._initial, operands),
+            )
         return out.cpu().numpy(), energies.cpu().numpy(), cfg.n_circuit_evaluations()
 
     def minimize_slots(
@@ -351,33 +373,42 @@ class BatchedGradientDescent:
         cfg = self.config
         if operands is None or not cache_enabled(cfg.cache_prefix, operands):
             return None
-        device = evaluator.device
+        mesh = getattr(evaluator, "mesh", None)
+        where = operand_device(mesh, evaluator.device)
         n = packed.n_qubits
-        pop, n_slots = n_free.shape
-        gt, ctrl, ang, lm = packed_tensors(packed, angles, device)
-        initial = evaluator.initial_states(pop)
-        coords_t = torch.as_tensor(coords, dtype=torch.long, device=device)
-        coord_mask = torch.as_tensor(
-            np.arange(coords.shape[2])[None, None, :] < np.asarray(n_free)[:, :, None],
-            dtype=torch.float32, device=device,
-        )
-        act = torch.as_tensor(active, dtype=torch.float32, device=device)[:, :, None] * coord_mask
-        layers_t = torch.as_tensor(slot_layers, dtype=torch.long, device=device)
-        engine = choose_prefix_engine(n, device)
+        n_slots = n_free.shape[1]
         fold = bool(cfg.use_fold)
-        for s in range(n_slots):
+
+        def search(pa, ra):
+            gt, ctrl, ang, lm, crd, cm, act, layers = pa
+            shared, ops = ra
+            initial = expand_initial(shared, gt.shape[0])
+            act = act.to(torch.float32)[:, :, None] * cm
+            engine = choose_prefix_engine(n, ang.device)
+            for s in range(n_slots):
+                with torch.no_grad():
+                    prefix = simulate_prefix_states(
+                        gt, ctrl, ang, prefix_mask(lm, layers[:, s]), n, initial, mode=engine
+                    )
+                suffix = lm & ~prefix_mask(torch.ones_like(lm), layers[:, s])
+                objective = _Objective(ops, n, (gt, ctrl, suffix), prefix, crd[:, s], cm[:, s],
+                                       ang.shape)
+                theta = objective.descend(ang, act[:, s], cfg, fold)
+                with torch.no_grad():
+                    ang = objective.shifted(ang, theta * act[:, s])
+            whole = _Objective(ops, n, (gt, ctrl, lm), initial, crd[:, 0], cm[:, 0], ang.shape)
             with torch.no_grad():
-                prefix = simulate_prefix_states(
-                    gt, ctrl, ang, prefix_mask(lm, layers_t[:, s]), n, initial, mode=engine
-                )
-            suffix = lm & ~prefix_mask(torch.ones_like(lm), layers_t[:, s])
-            objective = _Objective(operands, n, (gt, ctrl, suffix), prefix, coords_t[:, s],
-                                   coord_mask[:, s], ang.shape)
-            theta = objective.descend(ang, act[:, s], cfg, fold)
-            with torch.no_grad():
-                ang = objective.shifted(ang, theta * act[:, s])
-        full = _Objective(operands, n, (gt, ctrl, lm), initial, coords_t[:, 0],
-                          coord_mask[:, 0], ang.shape)
-        with torch.no_grad():
-            final = full.energies(ang, fold)
-        return ang.cpu().numpy(), final.cpu().numpy(), cfg.n_circuit_evaluations()
+                return ang, whole.energies(ang, fold)
+
+        pop_args = (
+            *packed_tensors(packed, angles, where),
+            torch.as_tensor(coords, dtype=torch.long, device=where),
+            torch.as_tensor(
+                np.arange(coords.shape[2])[None, None, :] < np.asarray(n_free)[:, :, None],
+                dtype=torch.float32, device=where,
+            ),
+            torch.as_tensor(active, dtype=torch.bool, device=where),
+            torch.as_tensor(slot_layers, dtype=torch.long, device=where),
+        )
+        out, final = run_batched(mesh, search, pop_args, (evaluator._initial, operands))
+        return out.cpu().numpy(), final.cpu().numpy(), cfg.n_circuit_evaluations()

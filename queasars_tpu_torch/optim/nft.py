@@ -42,6 +42,12 @@ An evaluator without objective operands (an external backend,
 reference's host-stepped numpy loop (:meth:`BatchedNFT._minimize_host`),
 one ``evaluate_packed`` call per probe; ``minimize_slots`` returns None for
 it, so the per-slot loop calls :meth:`BatchedNFT.minimize` slot by slot.
+
+Under a population mesh (the evaluator's ``mesh``, ``parallel/mesh.py``)
+both searches run block by block on the mesh's devices, as the reference's
+dispatch sites do (``minimize``'s full-circuit steps, for the prefix cache
+is off under a mesh, and ``minimize_slots``' slot loop); the keys are split
+for the whole population first.
 """
 
 from __future__ import annotations
@@ -75,8 +81,10 @@ from queasars_tpu_torch.optim.sweep_kernel_launch import (
     nft_layer_sweep_folded_launch,
     nft_layer_sweep_launch,
 )
-from queasars_tpu_torch.sim.evaluators import packed_tensors
+from queasars_tpu_torch.parallel.mesh import operand_device, run_batched
+from queasars_tpu_torch.sim.evaluators import expand_initial, packed_tensors
 from queasars_tpu_torch.utils import prng
+from queasars_tpu_torch.utils.batch_invariant import combine
 
 
 @dataclass(frozen=True)
@@ -160,7 +168,7 @@ def _five_point_update(objective, angles, rows, layer, q, a, theta, z0, pop_keys
         shifted[rows, layer, q, a] = theta + delta
         samples.append(objective(shifted, _probe_keys(pop_keys, k, probe)))
     inverse, grid, basis = _five_point_constants(angles.device)
-    coeffs = inverse @ torch.stack(samples)  # [5, P]
+    coeffs = combine(inverse, samples)  # [5, P]
     fitted = (
         coeffs[0][:, None]
         + coeffs[1][:, None] * basis[0][None, :]
@@ -284,24 +292,37 @@ class BatchedNFT:
             # device steps: run the same NFT math host-stepped against
             # evaluate_packed
             return self._minimize_host(evaluator, packed, coords, n_free, active, a)
+        mesh = getattr(evaluator, "mesh", None)
         device = evaluator.device
         n = packed.n_qubits
         pop = packed.n_individuals
-        gt, ctrl, ang, lm = packed_tensors(packed, a, device)
-        initial = evaluator.initial_states(pop)
-        coords_t = torch.as_tensor(coords, dtype=torch.long, device=device)
-        n_free_t = torch.as_tensor(n_free, dtype=torch.int32, device=device)
-        active_t = torch.as_tensor(active, dtype=torch.bool, device=device)
+        where = operand_device(mesh, device)
+        gt, ctrl, ang, lm = packed_tensors(packed, a, where)
+        coords_t = torch.as_tensor(coords, dtype=torch.long, device=where)
+        n_free_t = torch.as_tensor(n_free, dtype=torch.int32, device=where)
+        active_t = torch.as_tensor(active, dtype=torch.bool, device=where)
         pop_keys = prng.split(prng.PRNGKey(seed), pop) if operands["use_shots"] else None
         cfg = self.config
 
-        if not prefix_enabled(cfg.cache_prefix, operands, last_layer):
-            objective = self._objective(operands, n, gt, ctrl, lm, initial)
-            out, energies = _nft_steps(
-                objective, ang, coords_t, n_free_t, active_t, cfg.maxiter, cfg.reset_interval,
-                pop_keys, cfg.five_point,
+        if not prefix_enabled(cfg.cache_prefix, operands, mesh, last_layer):
+            def steps(pa, ra):
+                gt, ctrl, ang, lm, crd, nf, act, keys = pa
+                shared, ops = ra
+                objective = self._objective(
+                    ops, n, gt, ctrl, lm, expand_initial(shared, gt.shape[0])
+                )
+                return _nft_steps(
+                    objective, ang, crd, nf, act, cfg.maxiter, cfg.reset_interval, keys,
+                    cfg.five_point,
+                )
+
+            out, energies = run_batched(
+                mesh, steps, (gt, ctrl, ang, lm, coords_t, n_free_t, active_t, pop_keys),
+                (evaluator._initial, operands),
             )
-        elif self._in_kernel_sweep_applies(operands):
+            return out.cpu().numpy(), energies.cpu().numpy(), cfg.n_circuit_evaluations()
+        initial = evaluator.initial_states(pop)
+        if self._in_kernel_sweep_applies(operands):
             rows = torch.arange(pop, device=device)
             ll = torch.as_tensor(last_layer, dtype=torch.long, device=device)
             launch = (
@@ -407,30 +428,42 @@ class BatchedNFT:
             return None
         if not cache_enabled(self.config.cache_prefix, operands):
             return None
-        device = evaluator.device
+        mesh = getattr(evaluator, "mesh", None)
+        where = operand_device(mesh, evaluator.device)
         n = packed.n_qubits
         pop = packed.n_individuals
-        gt, ctrl, ang, lm = packed_tensors(packed, angles, device)
-        initial = evaluator.initial_states(pop)
-        coords_t = torch.as_tensor(coords, dtype=torch.long, device=device)
-        n_free_t = torch.as_tensor(n_free, dtype=torch.int32, device=device)
-        active_t = torch.as_tensor(active, dtype=torch.bool, device=device)
-        layers_t = torch.as_tensor(slot_layers, dtype=torch.long, device=device)
-        z0 = torch.zeros(pop, dtype=torch.float32, device=device)
-        engine = choose_prefix_engine(n, device)
         n_slots = n_free.shape[1]
         seeds = np.zeros(n_slots, np.int64) if seeds is None else np.asarray(seeds)
-        for s in range(n_slots):
-            prefix = simulate_prefix_states(
-                gt, ctrl, ang, prefix_mask(lm, layers_t[:, s]), n, initial, mode=engine
-            )
-            suffix = lm & ~prefix_mask(torch.ones_like(lm), layers_t[:, s])
-            objective = self._objective(operands, n, gt, ctrl, suffix, prefix)
-            pop_keys = (
-                prng.split(prng.PRNGKey(int(seeds[s])), pop) if operands["use_shots"] else None
-            )
-            ang, z0 = _nft_steps(
-                objective, ang, coords_t[:, s], n_free_t[:, s], active_t[:, s],
-                self.config.maxiter, self.config.reset_interval, pop_keys, self.config.five_point,
-            )
-        return ang.cpu().numpy(), z0.cpu().numpy(), self.config.n_circuit_evaluations()
+        keys = None
+        if operands["use_shots"]:
+            keys = torch.stack([prng.split(prng.PRNGKey(int(s)), pop) for s in seeds], dim=1)
+        cfg = self.config
+
+        def search(pa, ra):
+            gt, ctrl, ang, lm, crd, nf, act, layers, keys = pa
+            shared, ops = ra
+            initial = expand_initial(shared, gt.shape[0])
+            z0 = torch.zeros(gt.shape[0], dtype=torch.float32, device=ang.device)
+            engine = choose_prefix_engine(n, ang.device)
+            for s in range(n_slots):
+                prefix = simulate_prefix_states(
+                    gt, ctrl, ang, prefix_mask(lm, layers[:, s]), n, initial, mode=engine
+                )
+                suffix = lm & ~prefix_mask(torch.ones_like(lm), layers[:, s])
+                objective = self._objective(ops, n, gt, ctrl, suffix, prefix)
+                ang, z0 = _nft_steps(
+                    objective, ang, crd[:, s], nf[:, s], act[:, s], cfg.maxiter,
+                    cfg.reset_interval, None if keys is None else keys[:, s], cfg.five_point,
+                )
+            return ang, z0
+
+        pop_args = (
+            *packed_tensors(packed, angles, where),
+            torch.as_tensor(coords, dtype=torch.long, device=where),
+            torch.as_tensor(n_free, dtype=torch.int32, device=where),
+            torch.as_tensor(active, dtype=torch.bool, device=where),
+            torch.as_tensor(slot_layers, dtype=torch.long, device=where),
+            keys,
+        )
+        out, energies = run_batched(mesh, search, pop_args, (evaluator._initial, operands))
+        return out.cpu().numpy(), energies.cpu().numpy(), cfg.n_circuit_evaluations()

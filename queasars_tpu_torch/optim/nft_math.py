@@ -22,6 +22,8 @@ import math
 
 import torch
 
+from queasars_tpu_torch.utils.batch_invariant import atan2
+
 
 def nft_three_point_update(z0, z1, z3, xp=torch):
     """The 3-point sinusoid fit.
@@ -35,7 +37,7 @@ def nft_three_point_update(z0, z1, z3, xp=torch):
     mid = (z1 + z3) / 2
     d, e = z0 - mid, (z1 - z3) / 2
     square_sum = d * d + e * e
-    shift = torch.atan2(e, d) if xp is torch else xp.arctan2(e, d)
+    shift = atan2(e, d) if xp is torch else xp.arctan2(e, d)
     minimum_value = mid - xp.sqrt(square_sum)
     return shift, minimum_value
 

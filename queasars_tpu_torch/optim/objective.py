@@ -26,7 +26,8 @@ general branches: with shots, QWC grouped measurement
 (``sim/grouped_sampling.py``: the one-launch grouped kernel on the fold
 route, one sampled-kernel launch per group on the slot route, the flat
 sampler outside the in-kernel samplers' sizes); exact, the states kernel
-and then a dense Hermitian matvec (n <= 12) or the matrix-free term scan.
+and then a dense Hermitian matvec (n <= 12, no mesh) or the matrix-free
+term scan.
 
 On the CPU every wrapper runs its plain version; the fold route is chosen
 only for tensors on the card (:func:`mxu_fold_enabled`).
@@ -51,6 +52,7 @@ from queasars_tpu_torch.sim.expectation import (
 from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
 from queasars_tpu_torch.sim.sampling import sample_indices
 from queasars_tpu_torch.utils import prng
+from queasars_tpu_torch.utils.batch_invariant import row_mean
 
 
 def mxu_fold_enabled(use_mxu, n_qubits: int, path: str = "exact", device="cuda") -> bool:
@@ -152,7 +154,7 @@ def population_energies(
         shot_energies = table[idx.long()]
         if use_cvar:
             return cvar_expectation_from_shot_energies(shot_energies, alpha)
-        return shot_energies.mean(dim=-1)
+        return row_mean(shot_energies)
     if use_cvar:
         probs = population_probs(
             gate_types, controls, angles, layer_mask, n_qubits=n_qubits,
@@ -202,7 +204,8 @@ def objective_operands(evaluator) -> dict:
     :func:`population_energies` (TypeError for unsupported evaluators).
     An estimator with ``precision > 0`` hands over its inner sampler's; a
     general operator hands over its grouped-measurement operands (sampler)
-    or its dense matrix (n <= 12) or Pauli terms (estimator)."""
+    or its dense matrix (n <= 12; Pauli terms under a mesh) or Pauli terms
+    (estimator)."""
     from queasars_tpu_torch.sim.evaluators import (
         SamplerExpectationEvaluator,
         StatevectorExpectationEvaluator,
@@ -212,8 +215,12 @@ def objective_operands(evaluator) -> dict:
         if evaluator._precision_sampler is not None:
             return objective_operands(evaluator._precision_sampler)
         if not evaluator._diagonal:
+            # under a mesh, the term scan: the dense matvec's GEMM need not
+            # round alike at every batch size, which would break the
+            # trajectory identity across block counts (parallel/mesh.py)
+            general = evaluator._general if evaluator.mesh is None else evaluator.general_terms()
             return dict(
-                table=evaluator._general, sorted_energies=None, energy_order=None, alpha=1.0,
+                table=general, sorted_energies=None, energy_order=None, alpha=1.0,
                 use_cvar=False, shots=0, use_shots=False, use_general=True,
             )
         shots, use_shots = 0, False

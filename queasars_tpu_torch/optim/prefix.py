@@ -80,11 +80,13 @@ def cache_enabled(cache_flag: Optional[bool], operands: dict) -> bool:
     return kernel_route(operands) if cache_flag is None else bool(cache_flag)
 
 
-def prefix_enabled(cache_flag: Optional[bool], operands: dict, last_layer) -> bool:
+def prefix_enabled(cache_flag: Optional[bool], operands: dict, mesh, last_layer) -> bool:
     """Whether a search caches its prefix (the reference's
-    ``prefix_enabled``): only with ``last_layer``, then as
-    :func:`cache_enabled` resolves."""
-    return last_layer is not None and cache_enabled(cache_flag, operands)
+    ``prefix_enabled``): only with ``last_layer`` and without a population
+    mesh, then as :func:`cache_enabled` resolves."""
+    if last_layer is None or mesh is not None:
+        return False
+    return cache_enabled(cache_flag, operands)
 
 
 @dataclass

@@ -28,6 +28,13 @@ from each slot's prefix states.  An evaluator without objective operands
 function) takes the reference's host-stepped numpy loop
 (:meth:`BatchedSPSA._minimize_host`), its directions drawn from a numpy
 generator seeded with ``seed``; ``minimize_slots`` returns None for it.
+
+Under a population mesh (the evaluator's ``mesh``, ``parallel/mesh.py``)
+the calibration, the steps (one at a time with termination checkers) and
+the final evaluation of :meth:`BatchedSPSA.minimize`, and the whole slot
+loop of :meth:`BatchedSPSA.minimize_slots`, run block by block on the
+mesh's devices (the reference's ``run_sharded`` and per-slot dispatch);
+the prefix cache is off under a mesh, as in the reference.
 """
 
 from __future__ import annotations
@@ -49,7 +56,8 @@ from queasars_tpu_torch.optim.prefix import (
     simulate_prefix_states,
 )
 from queasars_tpu_torch.optim.spsa_termination import SPSATerminationChecker
-from queasars_tpu_torch.sim.evaluators import packed_tensors
+from queasars_tpu_torch.parallel.mesh import operand_device, run_batched
+from queasars_tpu_torch.sim.evaluators import expand_initial, packed_tensors
 from queasars_tpu_torch.utils import prng
 
 #: the calibration pairs' offset in the step index of their keys
@@ -198,15 +206,20 @@ class BatchedSPSA:
     def __init__(self, config: SPSAConfig = SPSAConfig()):
         self.config = config
 
+    def _calibrated_rates(self, magnitude: torch.Tensor) -> torch.Tensor:
+        """Per-individual ``a`` [P] from the calibration's mean magnitudes."""
+        return float(_f32(self.config.target_magnitude)) / magnitude.clamp(min=1e-6)
+
+    def _fixed_rates(self, pop: int, device) -> torch.Tensor:
+        rate = float(_f32(self.config.learning_rate))
+        return torch.full((pop,), rate, dtype=torch.float32, device=device)
+
     def _learning_rates(self, search: _Search, angles) -> tuple[torch.Tensor, int]:
         """Per-individual ``a`` [P] and the evaluations spent finding it."""
         cfg = self.config
         if cfg.learning_rate is None:
-            magnitude = search.calibrate(angles, cfg)
-            rates = float(_f32(cfg.target_magnitude)) / magnitude.clamp(min=1e-6)
-            return rates, 2 * cfg.calibration_steps
-        rate = float(_f32(cfg.learning_rate))
-        return torch.full((angles.shape[0],), rate, dtype=torch.float32, device=angles.device), 0
+            return self._calibrated_rates(search.calibrate(angles, cfg)), 2 * cfg.calibration_steps
+        return self._fixed_rates(angles.shape[0], angles.device), 0
 
     def minimize(
         self,
@@ -242,35 +255,73 @@ class BatchedSPSA:
                 evaluator, packed, coords, n_free, active, np.asarray(a), seed,
                 termination_checkers,
             )
+        mesh = getattr(evaluator, "mesh", None)
         device = evaluator.device
+        where = operand_device(mesh, device)
         pop = packed.n_individuals
-        gt, ctrl, ang, lm = packed_tensors(packed, a, device)
-        initial = evaluator.initial_states(pop)
-        coords_t = torch.as_tensor(coords, dtype=torch.long, device=device)
+        n = packed.n_qubits
+        gt, ctrl, ang, lm = packed_tensors(packed, a, where)
+        coords_t = torch.as_tensor(coords, dtype=torch.long, device=where)
         coord_mask = torch.as_tensor(
             np.arange(coords.shape[1])[None, :] < np.asarray(n_free)[:, None],
-            dtype=torch.float32, device=device,
+            dtype=torch.float32, device=where,
         )
-        active_t = torch.as_tensor(active, dtype=torch.bool, device=device)
+        active_t = torch.as_tensor(active, dtype=torch.bool, device=where)
         pop_keys = prng.split(prng.PRNGKey(seed), pop)
-        transform = None
-        if termination_checkers is None and prefix_enabled(cfg.cache_prefix, operands, last_layer):
+        if termination_checkers is None and prefix_enabled(
+            cfg.cache_prefix, operands, mesh, last_layer
+        ):
             transform = build_prefix_transform(
-                gt, ctrl, ang, lm, coords_t, last_layer, packed.n_qubits, initial
+                gt, ctrl, ang, lm, coords_t, last_layer, n, evaluator.initial_states(pop)
             )
-            structure = (transform.gate_types, transform.controls, transform.layer_mask)
-            ang, coords_t, initial = transform.angles, transform.coords, transform.initial_state
+            search = _Search(
+                operands, n, (transform.gate_types, transform.controls, transform.layer_mask),
+                transform.initial_state, transform.angles.shape, transform.coords, coord_mask,
+                pop_keys,
+            )
+            learning_rates, nfev = self._learning_rates(search, transform.angles)
+            out = search.steps(transform.angles, active_t, learning_rates, cfg, cfg.maxiter)
+            energies = search.final(out)
+            out = transform.merge(out)
+            return out.cpu().numpy(), energies.cpu().numpy(), nfev + 2 * cfg.maxiter
+
+        # full circuits, directly or block by block over the mesh
+        replicated = (evaluator._initial, operands)
+
+        def search_of(gt, ctrl, lm, ang, crd, cm, keys, ra) -> _Search:
+            shared, ops = ra
+            initial = expand_initial(shared, gt.shape[0])
+            return _Search(ops, n, (gt, ctrl, lm), initial, ang.shape, crd, cm, keys)
+
+        def calibrate(pa, ra):
+            gt, ctrl, lm, ang, crd, cm, keys = pa
+            return search_of(gt, ctrl, lm, ang, crd, cm, keys, ra).calibrate(ang, cfg)
+
+        def stepper(maxiter: int, start: int):
+            def run(pa, ra):
+                gt, ctrl, lm, ang, crd, cm, act, rates, keys = pa
+                search = search_of(gt, ctrl, lm, ang, crd, cm, keys, ra)
+                out = search.steps(ang, act, rates, cfg, maxiter, start)
+                return out, search.final(out)
+
+            return run
+
+        if cfg.learning_rate is None:
+            magnitude = run_batched(
+                mesh, calibrate, (gt, ctrl, lm, ang, coords_t, coord_mask, pop_keys), replicated
+            )
+            learning_rates = self._calibrated_rates(magnitude)
+            nfev = 2 * cfg.calibration_steps
         else:
-            structure = (gt, ctrl, lm)
-        search = _Search(operands, packed.n_qubits, structure, initial, ang.shape, coords_t,
-                         coord_mask, pop_keys)
-        learning_rates, nfev = self._learning_rates(search, ang)
+            learning_rates = self._fixed_rates(pop, where)
+            nfev = 0
 
         if termination_checkers is None:
-            out = search.steps(ang, active_t, learning_rates, cfg, cfg.maxiter)
-            energies = search.final(out)
-            if transform is not None:
-                out = transform.merge(out)
+            out, energies = run_batched(
+                mesh, stepper(cfg.maxiter, 0),
+                (gt, ctrl, lm, ang, coords_t, coord_mask, active_t, learning_rates, pop_keys),
+                replicated,
+            )
             return out.cpu().numpy(), energies.cpu().numpy(), nfev + 2 * cfg.maxiter
 
         # host-stepped with per-individual termination
@@ -278,9 +329,13 @@ class BatchedSPSA:
         for k in range(cfg.maxiter):
             if not live.any():
                 break
-            live_t = torch.as_tensor(live, device=device)
-            ang = search.steps(ang, live_t, learning_rates, cfg, 1, start=k)
-            energies = search.final(ang).cpu().numpy()
+            live_t = torch.as_tensor(live, device=where)
+            ang, energies = run_batched(
+                mesh, stepper(1, k),
+                (gt, ctrl, lm, ang, coords_t, coord_mask, live_t, learning_rates, pop_keys),
+                replicated,
+            )
+            energies = energies.cpu().numpy()
             current = ang.cpu().numpy()
             nfev += 2
             for i, checker in enumerate(termination_checkers):
@@ -401,30 +456,41 @@ class BatchedSPSA:
         cfg = self.config
         if not cache_enabled(cfg.cache_prefix, operands):
             return None
-        device = evaluator.device
+        mesh = getattr(evaluator, "mesh", None)
+        where = operand_device(mesh, evaluator.device)
         n = packed.n_qubits
         pop, n_slots = n_free.shape
-        gt, ctrl, ang, lm = packed_tensors(packed, angles, device)
-        initial = evaluator.initial_states(pop)
-        coords_t = torch.as_tensor(coords, dtype=torch.long, device=device)
-        coord_mask = torch.as_tensor(
-            np.arange(coords.shape[2])[None, None, :] < np.asarray(n_free)[:, :, None],
-            dtype=torch.float32, device=device,
-        )
-        active_t = torch.as_tensor(active, dtype=torch.bool, device=device)
-        layers_t = torch.as_tensor(slot_layers, dtype=torch.long, device=device)
         seeds = np.zeros(n_slots, np.int64) if seeds is None else np.asarray(seeds)
-        engine = choose_prefix_engine(n, device)
-        for s in range(n_slots):
-            prefix = simulate_prefix_states(
-                gt, ctrl, ang, prefix_mask(lm, layers_t[:, s]), n, initial, mode=engine
-            )
-            suffix = lm & ~prefix_mask(torch.ones_like(lm), layers_t[:, s])
-            keys = prng.split(prng.PRNGKey(int(seeds[s])), pop)
-            search = _Search(operands, n, (gt, ctrl, suffix), prefix, ang.shape, coords_t[:, s],
-                             coord_mask[:, s], keys)
-            learning_rates, _ = self._learning_rates(search, ang)
-            ang = search.steps(ang, active_t[:, s], learning_rates, cfg, cfg.maxiter)
-        final = _energies(operands, n, (gt, ctrl, lm), initial, ang,
-                          prng.fold_in(keys, FINAL_KEY_DATA))
-        return ang.cpu().numpy(), final.cpu().numpy(), cfg.n_circuit_evaluations()
+        keys = torch.stack([prng.split(prng.PRNGKey(int(s)), pop) for s in seeds], dim=1)
+
+        def search(pa, ra):
+            gt, ctrl, ang, lm, crd, cm, act, layers, keys = pa
+            shared, ops = ra
+            initial = expand_initial(shared, gt.shape[0])
+            engine = choose_prefix_engine(n, ang.device)
+            for s in range(n_slots):
+                prefix = simulate_prefix_states(
+                    gt, ctrl, ang, prefix_mask(lm, layers[:, s]), n, initial, mode=engine
+                )
+                suffix = lm & ~prefix_mask(torch.ones_like(lm), layers[:, s])
+                slot = _Search(ops, n, (gt, ctrl, suffix), prefix, ang.shape, crd[:, s],
+                               cm[:, s], keys[:, s])
+                learning_rates, _ = self._learning_rates(slot, ang)
+                ang = slot.steps(ang, act[:, s], learning_rates, cfg, cfg.maxiter)
+            final = _energies(ops, n, (gt, ctrl, lm), initial, ang,
+                              prng.fold_in(keys[:, n_slots - 1], FINAL_KEY_DATA))
+            return ang, final
+
+        pop_args = (
+            *packed_tensors(packed, angles, where),
+            torch.as_tensor(coords, dtype=torch.long, device=where),
+            torch.as_tensor(
+                np.arange(coords.shape[2])[None, None, :] < np.asarray(n_free)[:, :, None],
+                dtype=torch.float32, device=where,
+            ),
+            torch.as_tensor(active, dtype=torch.bool, device=where),
+            torch.as_tensor(slot_layers, dtype=torch.long, device=where),
+            keys,
+        )
+        out, final = run_batched(mesh, search, pop_args, (evaluator._initial, operands))
+        return out.cpu().numpy(), final.cpu().numpy(), cfg.n_circuit_evaluations()

@@ -14,6 +14,13 @@ operator QWC grouped measurement (``optim/objective.py``,
 ``sim/grouped_sampling.py``).  A black-box bitstring objective samples the
 probabilities kernel of the optimizers' route and evaluates the objective on
 the host.  On the CPU the same wrappers run their plain versions.
+
+With a population mesh attached (:meth:`BaseCircuitEvaluator.set_mesh`,
+``parallel/mesh.py``), every population evaluation runs block by block
+over the mesh's devices through :meth:`BaseCircuitEvaluator._run_batched`
+(the reference's per-individual executor fan-out, selection.py:75-84); a
+general operator's exact energy then takes the term scan, not the dense
+matvec, as the reference's does.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 
 from queasars_tpu_torch.genome.individual import EVQEIndividual
 from queasars_tpu_torch.genome.packing import PackedPopulation
+from queasars_tpu_torch.parallel.mesh import operand_device, run_batched
 from queasars_tpu_torch.paulis import PauliSum
 from queasars_tpu_torch.paulis.diagonal import diagonal_energy_table
 from queasars_tpu_torch.sim import slot_kernels
@@ -92,17 +100,44 @@ def _prepare_initial_state(
     return torch.as_tensor(stacked, device=device)
 
 
+def expand_initial(initial: Optional[torch.Tensor], pop: int) -> Optional[torch.Tensor]:
+    """A shared start state [2, 2^n] as per-individual [P, 2, 2^n] (None
+    stays None: |0...0>)."""
+    if initial is None:
+        return None
+    return initial.expand(pop, *initial.shape).contiguous()
+
+
 class BaseCircuitEvaluator(ABC):
     """Uniform "population -> energies" contract
     (reference: circuit_evaluation.py:62-87).  ``device`` is where the
     evaluator's circuits run (None = the CUDA device); the solver measures
     the best circuit's final distribution there, from
-    :meth:`initial_states`."""
+    :meth:`initial_states`.  With a population mesh attached
+    (:meth:`set_mesh`), population evaluations run block by block on the
+    mesh's devices instead."""
 
     def __init__(self, n_qubits: int, device=None):
         self.n_qubits = n_qubits
         self.device = resolve_device(device)
         self._initial: Optional[torch.Tensor] = None
+        self.mesh = None
+
+    def set_mesh(self, mesh) -> None:
+        """Split subsequent population evaluations over ``mesh``'s blocks
+        (``parallel/mesh.py``; None detaches)."""
+        self.mesh = mesh
+
+    def _run_batched(self, fn, pop_args: tuple, rep_args: tuple = ()) -> np.ndarray:
+        """Run ``fn(pop_args, rep_args)`` on the evaluator's device, or over
+        the attached mesh (population padded to the mesh's pad multiple,
+        outputs cut back); numpy."""
+        return run_batched(self.mesh, fn, pop_args, rep_args).cpu().numpy()
+
+    def _genome(self, packed: PackedPopulation, angles=None) -> tuple:
+        """``packed_tensors`` where :meth:`_run_batched` takes them: on the
+        evaluator's device, or on the CPU for the mesh to split."""
+        return packed_tensors(packed, angles, operand_device(self.mesh, self.device))
 
     @abstractmethod
     def evaluate_packed(
@@ -114,9 +149,7 @@ class BaseCircuitEvaluator(ABC):
     def initial_states(self, pop: int) -> Optional[torch.Tensor]:
         """The shared start state as per-individual [P, 2, 2^n] (None =
         |0...0>)."""
-        if self._initial is None:
-            return None
-        return self._initial.expand(pop, *self._initial.shape).contiguous()
+        return expand_initial(self._initial, pop)
 
     def evaluate_individuals(self, individuals: Sequence[EVQEIndividual]) -> list[float]:
         """Convenience wrapper: pack then evaluate."""
@@ -141,7 +174,10 @@ class BaseCircuitEvaluator(ABC):
 class _OperatorEvaluator(BaseCircuitEvaluator):
     """Shared state of the operator evaluators: the operator, the CVaR
     alpha, the optional start state and, for a diagonal operator, its energy
-    table (sorted with its order for CVaR)."""
+    table (sorted with its order for CVaR).  Direct evaluations take
+    ``_use_mxu``'s route (``optim/objective.py``)."""
+
+    _use_mxu: Optional[bool] = None
 
     def __init__(self, operator: PauliSum, alpha: float, initial_state, device):
         super().__init__(operator.n_qubits, device)
@@ -159,9 +195,34 @@ class _OperatorEvaluator(BaseCircuitEvaluator):
         self._order = torch.argsort(self._table, stable=True)
         self._sorted = self._table[self._order]
 
+    def _keys(self, pop: int) -> Optional[torch.Tensor]:
+        """The next round's per-individual keys [P, 2] of a sampled
+        evaluation, drawn for the whole population before any padding
+        (None: exact)."""
+        return None
+
+    def _block_energies(self, pop_args, rep_args) -> torch.Tensor:
+        """Energies of (gate_types, controls, angles, layer_mask, keys) on
+        their device, with (the shared start state, the objective operands)
+        there: the function :meth:`evaluate_packed` runs per block."""
+        from queasars_tpu_torch.optim.objective import population_energies
+
+        gate_types, controls, angles, layer_mask, keys = pop_args
+        shared, operands = rep_args
+        return population_energies(
+            gate_types, controls, angles, layer_mask, keys=keys, n_qubits=self.n_qubits,
+            initial_state=expand_initial(shared, gate_types.shape[0]), use_mxu=self._use_mxu,
+            **operands,
+        )
+
     def evaluate_packed(self, packed, angles=None):
-        tensors = packed_tensors(packed, angles, self.device)
-        return self.energies(*tensors).cpu().numpy()
+        from queasars_tpu_torch.optim.objective import objective_operands
+
+        keys = self._keys(packed.n_individuals)
+        return self._run_batched(
+            self._block_energies, (*self._genome(packed, angles), keys),
+            (self._initial, objective_operands(self)),
+        )
 
 
 class SamplerExpectationEvaluator(_OperatorEvaluator):
@@ -227,22 +288,7 @@ class SamplerExpectationEvaluator(_OperatorEvaluator):
         self._counter += 1
         return prng.split(prng.fold_in(self._key, self._counter), pop)
 
-    def energies(
-        self, gate_types, controls, angles, layer_mask, initial=None, keys=None
-    ) -> torch.Tensor:
-        """Sampled energies [P] of device genome tensors with the keys
-        ``keys`` [P, 2] (None: the next round's), on the optimizers' route
-        (the reference's sampler evaluator dispatches as its objective)."""
-        from queasars_tpu_torch.optim.objective import objective_operands, population_energies
-
-        if initial is None:
-            initial = self.initial_states(gate_types.shape[0])
-        if keys is None:
-            keys = self._next_keys(gate_types.shape[0])
-        return population_energies(
-            gate_types, controls, angles, layer_mask, keys=keys, n_qubits=self.n_qubits,
-            initial_state=initial, **objective_operands(self),
-        )
+    _keys = _next_keys
 
 
 class StatevectorExpectationEvaluator(_OperatorEvaluator):
@@ -260,6 +306,11 @@ class StatevectorExpectationEvaluator(_OperatorEvaluator):
     :param device: where evaluation runs (None = the CUDA device)
     :param seed: RNG seed of the precision shot stream
     """
+
+    #: exact energies run on the slot kernels, as the reference's
+    #: ``evaluate_packed`` does (the optimizers' objectives take the route
+    #: ``QUEASARS_MXU`` picks)
+    _use_mxu = False
 
     def __init__(
         self,
@@ -280,7 +331,7 @@ class StatevectorExpectationEvaluator(_OperatorEvaluator):
                 operator, shots=int(ceil(self.precision ** -2.0)), alpha=alpha, seed=seed,
                 initial_state=initial_state, device=self.device,
             )
-        self._general = None
+        self._general = self._terms = None
         if self._diagonal:
             if self.alpha < 1.0:
                 self._sort_table()
@@ -312,28 +363,24 @@ class StatevectorExpectationEvaluator(_OperatorEvaluator):
             raise AttributeError("_counter")
         self._precision_sampler._counter = int(value)
 
-    def energies(
-        self, gate_types, controls, angles, layer_mask, initial=None, keys=None
-    ) -> torch.Tensor:
-        """Energies [P] of device genome tensors, from ``initial`` states
-        when given, else from this evaluator's start state.  Exact energies
-        run on the slot kernels, as the reference's ``evaluate_packed`` does
-        (the optimizers' objectives take the fold route); a general
-        operator's through the slot states kernel and the dense matvec or
-        term scan; with precision the inner sampler evaluates (``keys`` as
-        there)."""
-        from queasars_tpu_torch.optim.objective import objective_operands, population_energies
-
+    def set_mesh(self, mesh) -> None:
+        super().set_mesh(mesh)
         if self._precision_sampler is not None:
-            return self._precision_sampler.energies(
-                gate_types, controls, angles, layer_mask, initial, keys
-            )
-        if initial is None:
-            initial = self.initial_states(gate_types.shape[0])
-        return population_energies(
-            gate_types, controls, angles, layer_mask, n_qubits=self.n_qubits,
-            initial_state=initial, use_mxu=False, **objective_operands(self),
-        )
+            self._precision_sampler.set_mesh(mesh)
+
+    def general_terms(self):
+        """A general operator's Pauli terms (the term scan's operands; built
+        on first use where the evaluator holds the dense matrix)."""
+        if not isinstance(self._general, DenseHermitian):
+            return self._general
+        if self._terms is None:
+            self._terms = pauli_terms(self.operator, self.device)
+        return self._terms
+
+    def evaluate_packed(self, packed, angles=None):
+        if self._precision_sampler is not None:
+            return self._precision_sampler.evaluate_packed(packed, angles)
+        return super().evaluate_packed(packed, angles)
 
 
 def observed_frequencies(keys: torch.Tensor, probs: torch.Tensor, shots: int):
@@ -343,13 +390,18 @@ def observed_frequencies(keys: torch.Tensor, probs: torch.Tensor, shots: int):
     float32 reciprocal of ``shots``).  The columns of the empirical
     distribution (``sampling.empirical_probs``) that some individual
     observed, without building it: K <= P * shots."""
-    samples = sample_indices(keys, probs, shots)
+    return sample_frequencies(sample_indices(keys, probs, shots), shots)
+
+
+def sample_frequencies(samples: torch.Tensor, shots: int):
+    """:func:`observed_frequencies` of drawn basis indices [P, shots], on
+    their device."""
     observed = torch.unique(samples)
     columns = torch.searchsorted(observed, samples)
-    counts = torch.zeros((probs.shape[0], observed.shape[0]), dtype=torch.int64,
-                         device=probs.device)
+    counts = torch.zeros((samples.shape[0], observed.shape[0]), dtype=torch.int64,
+                         device=samples.device)
     counts.scatter_add_(1, columns, torch.ones_like(columns))
-    reciprocal = torch.tensor(1.0 / shots, dtype=torch.float32, device=probs.device)
+    reciprocal = torch.tensor(1.0 / shots, dtype=torch.float32, device=samples.device)
     return observed, counts.to(torch.float32) * reciprocal
 
 
@@ -424,7 +476,23 @@ class BitstringFunctionEvaluator(BaseCircuitEvaluator):
     def energies_from_probabilities(self, probs: torch.Tensor, keys: torch.Tensor) -> np.ndarray:
         """Objective values [P] (float64) of the shots drawn from ``probs``
         [P, 2^n] with ``keys`` [P, 2]."""
-        observed, frequencies = observed_frequencies(keys, probs, self.shots)
+        return self.energies_from_samples(sample_indices(keys, probs, self.shots))
+
+    def _block_samples(self, pop_args, rep_args) -> torch.Tensor:
+        """Drawn basis indices [P, shots] of (gate_types, controls, angles,
+        layer_mask, keys) on their device, from the shared start state."""
+        from queasars_tpu_torch.optim.objective import population_probs
+
+        *genome, keys = pop_args
+        probs = population_probs(
+            *genome, n_qubits=self.n_qubits,
+            initial_state=expand_initial(rep_args[0], genome[0].shape[0]),
+        )
+        return sample_indices(keys, probs, self.shots)
+
+    def energies_from_samples(self, samples: torch.Tensor) -> np.ndarray:
+        """Objective values [P] (float64) of drawn basis indices [P, shots]."""
+        observed, frequencies = sample_frequencies(samples, self.shots)
         observed = observed.cpu().numpy()
         values = np.array([self._state_value(int(s)) for s in observed], dtype=np.float64)
         weights = frequencies.cpu().numpy().astype(np.float64)
@@ -441,5 +509,11 @@ class BitstringFunctionEvaluator(BaseCircuitEvaluator):
         return (tail * v_sorted).sum(axis=1) / self.alpha
 
     def evaluate_packed(self, packed, angles=None):
+        """The samples are drawn block by block under a mesh; the objective
+        runs on the host over the whole population's observed states."""
         keys = self._next_keys(packed.n_individuals)
-        return self.energies_from_probabilities(self.probabilities(packed, angles), keys)
+        samples = run_batched(
+            self.mesh, self._block_samples, (*self._genome(packed, angles), keys),
+            (self._initial,),
+        )
+        return self.energies_from_samples(samples)

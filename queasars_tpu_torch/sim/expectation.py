@@ -14,6 +14,8 @@ from typing import NamedTuple
 
 import torch
 
+from queasars_tpu_torch.utils.batch_invariant import row_sum
+
 
 class PauliTerms(NamedTuple):
     """A Pauli sum's terms for :func:`general_pauli_expectation_real`:
@@ -47,7 +49,7 @@ class DenseHermitian(NamedTuple):
 
 def expectation_from_probs(probs: torch.Tensor, energy_table: torch.Tensor) -> torch.Tensor:
     """Plain expectation  <E> = sum_i p_i e_i  over the last axis."""
-    return (probs * energy_table).sum(dim=-1)
+    return row_sum(probs * energy_table)
 
 
 def cvar_expectation_from_probs(
@@ -66,7 +68,7 @@ def cvar_expectation_from_probs(
     p_sorted = probs[..., energy_order]
     cum_prev = torch.cumsum(p_sorted, dim=-1) - p_sorted
     weights = torch.minimum((alpha - cum_prev).clamp(min=0.0), p_sorted)
-    return (weights * sorted_energies).sum(dim=-1) / alpha
+    return row_sum(weights * sorted_energies) / alpha
 
 
 def cvar_expectation_from_shot_energies(energies: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -81,7 +83,7 @@ def cvar_expectation_from_shot_energies(energies: torch.Tensor, alpha: float) ->
     cum_prev = torch.arange(shots, dtype=torch.float32, device=energies.device) * mass
     alpha_t = torch.tensor(alpha, dtype=torch.float32, device=energies.device)
     weights = torch.minimum((alpha_t - cum_prev).clamp(min=0.0), mass)
-    return (weights * sorted_e).sum(dim=-1) / alpha_t
+    return row_sum(weights * sorted_e) / alpha_t
 
 
 def _parity(v: torch.Tensor) -> torch.Tensor:
@@ -120,8 +122,8 @@ def general_pauli_expectation_real(
         signs = 1.0 - 2.0 * _parity(idx & int(z)).to(torch.float32)
         flip = idx ^ int(x)
         fr, fi = re[..., flip], im[..., flip]
-        t_re = (signs * (re * fr + im * fi)).sum(dim=-1)
-        t_im = (signs * (re * fi - im * fr)).sum(dim=-1)
+        t_re = row_sum(signs * (re * fr + im * fi))
+        t_im = row_sum(signs * (re * fi - im * fr))
         acc = acc + coeffs_re[k] * t_re - coeffs_im[k] * t_im
     return acc
 
@@ -136,4 +138,4 @@ def dense_expectation(states: torch.Tensor, operator: DenseHermitian) -> torch.T
     h_re_t, h_im_t = operator.h_re.T, operator.h_im.T
     out_re = ar @ h_re_t - ai @ h_im_t
     out_im = ai @ h_re_t + ar @ h_im_t
-    return (ar * out_re + ai * out_im).sum(dim=-1)
+    return row_sum(ar * out_re + ai * out_im)

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from queasars_tpu_torch.sim.statevector import GATE_CROT, GATE_ROT
+from queasars_tpu_torch.utils.batch_invariant import atan2
 
 LANE_BITS = 7
 
@@ -142,14 +143,14 @@ def slot_factors(gate_type: torch.Tensor, angles: torch.Tensor):
     s_sq = nxy * nxy + mz * mz
     s_zero = s_sq == 0.0
     sin_d2 = torch.where(s_zero, zero, torch.sqrt(torch.where(s_zero, one, s_sq)))
-    d_half = torch.atan2(sin_d2, cos_d2)
+    d_half = atan2(sin_d2, cos_d2)
     ph0, ph1 = s - d_half, s + d_half
     ph = _mat(torch.cos(ph0), torch.sin(ph0), torch.cos(ph1), torch.sin(ph1))
 
     # V rotates z onto n: [[cos(b/2), -sin(b/2) e^{-ic}], [sin(b/2) e^{ic}, cos(b/2)]]
     mz_b = torch.where(xy_zero & (mz == 0.0), one, mz)
-    b_half = torch.atan2(nxy, mz_b) * 0.5
-    c = torch.atan2(torch.where(xy_zero, zero, my), torch.where(xy_zero, one, mx))
+    b_half = atan2(nxy, mz_b) * 0.5
+    c = atan2(torch.where(xy_zero, zero, my), torch.where(xy_zero, one, mx))
     cos_b, sin_b = torch.cos(b_half), torch.sin(b_half)
     cos_c, sin_c = torch.cos(c), torch.sin(c)
     v_re = _mat(cos_b, -sin_b * cos_c, sin_b * cos_c, cos_b)

@@ -42,6 +42,7 @@ from queasars_tpu_torch.sim.fold_pipeline import (
 )
 from queasars_tpu_torch.sim.sampling import sample_indices
 from queasars_tpu_torch.utils import prng
+from queasars_tpu_torch.utils.batch_invariant import row_mean
 
 
 class GroupedOperands(NamedTuple):
@@ -184,7 +185,7 @@ def grouped_energies_from_states(states, keys, operands: GroupedOperands, *, sho
     for g, g_shots in enumerate(counts):
         probs = _rotated_probs(states, operands.rot_types[g], operands.rot_angles[g], n_qubits)
         idx = sample_indices(prng.fold_in(keys, g), probs, g_shots)
-        total = total + operands.tables[g][idx].mean(dim=-1)
+        total = total + row_mean(operands.tables[g][idx])
     return operands.const + total
 
 
@@ -245,7 +246,7 @@ def grouped_shot_energies_kernels(
             idx = slot_kernels.sampled_shot_indices(
                 *ext, _group_uniforms(keys, g, g_shots, device), n_qubits, initial_state
             )
-            total = total + operands.tables[g][idx.long()].mean(dim=-1)
+            total = total + row_mean(operands.tables[g][idx.long()])
         return operands.const + total
     base = build_fold_pipeline(gate_types, controls, angles, layer_mask, n_qubits, absorb_diag=True)
     if one_launch_enabled() and fold_kernels.grouped_fold_supported(n_qubits, device, n_groups):
@@ -255,7 +256,7 @@ def grouped_shot_energies_kernels(
             rotate=operands.rotate,
         )
         for g, idx in enumerate(indices):
-            total = total + operands.tables[g][idx.long()].mean(dim=-1)
+            total = total + row_mean(operands.tables[g][idx.long()])
         return operands.const + total
     for g, g_shots in enumerate(counts):
         pipeline = extend_fold_pipeline_with_rotation(
@@ -264,7 +265,7 @@ def grouped_shot_energies_kernels(
         idx = fold_kernels.sampled_shot_indices_folded(
             pipeline, _group_uniforms(keys, g, g_shots, device), n_qubits, initial_state
         )
-        total = total + operands.tables[g][idx.long()].mean(dim=-1)
+        total = total + row_mean(operands.tables[g][idx.long()])
     return operands.const + total
 
 

@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import torch
 
+from queasars_tpu_torch.utils.batch_invariant import broadcast_rows
+
 GATE_ID = 0
 GATE_ROT = 1
 GATE_CTRL = 2
@@ -82,8 +84,9 @@ def apply_u3_pairs(state, q, entries, has_gate, crot, control, n_qubits):
     v = state.view(pop, 2, high, 2, low)
     r0, m0 = v[:, 0, :, 0, :], v[:, 1, :, 0, :]
     r1, m1 = v[:, 0, :, 1, :], v[:, 1, :, 1, :]
+    shape = (pop, high, low)
     (u00r, u00i), (u01r, u01i), (u10r, u10i), (u11r, u11i) = (
-        (re[:, None, None], im[:, None, None]) for re, im in entries
+        (broadcast_rows(re, shape), broadcast_rows(im, shape)) for re, im in entries
     )
     n0r = u00r * r0 - u00i * m0 + u01r * r1 - u01i * m1
     n0i = u00r * m0 + u00i * r0 + u01r * m1 + u01i * r1

@@ -25,8 +25,11 @@ states.  Only the gate each candidate or grown layer holds is applied: an
 empty slot is an exact identity in the slot engine, so the states equal the
 reference's full-layer ones while autograd keeps one state per gate instead
 of one per slot.  Adam runs in float32 as in the gradient optimizer
-(``optim/gradient.py``).  The reference's mesh-sharded screen is not ported
-yet (``mesh`` / ``n_devices`` raise).
+(``optim/gradient.py``).  With a population mesh (``mesh`` /
+``n_devices``, ``parallel/mesh.py``) the screen splits the candidate axis
+over the mesh's blocks (:func:`screen_pool_sharded`, the reference's
+``_screen_pool_sharded``): each block screens its candidates against the
+replicated state, equal to the single-device screen bit for bit.
 """
 
 from __future__ import annotations
@@ -58,6 +61,8 @@ from queasars_tpu_torch.sim.statevector import (
     _apply_slot,
     init_states,
 )
+from queasars_tpu_torch.utils import batch_invariant
+from queasars_tpu_torch.utils.batch_invariant import row_sum
 from queasars_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -86,8 +91,11 @@ class AdaptVQEConfiguration:
         an eigenstate, where every pool gradient vanishes) or ``"zero"``
     :param initial_state: optional start state (a statevector or an
         :class:`EVQEIndividual` preparing it); overrides ``start``
-    :param mesh / n_devices: the sharded screen, not ported yet (must be
-        None)
+    :param mesh: split the pool-gradient screen over this population mesh's
+        blocks (the candidate axis, O(n^2) candidates for the ``"full"``
+        pool, is ADAPT-VQE's parallel dimension)
+    :param n_devices: shorthand for ``mesh``: ``population_mesh(n_devices)``,
+        or ``n_devices`` CPU blocks when ``device`` is the CPU
     :param device: where the solve runs (None = the CUDA device)
     """
 
@@ -121,8 +129,6 @@ class AdaptVQEConfiguration:
             raise ValueError("learning_rate must be positive")
         if self.start not in ("plus", "zero"):
             raise ValueError(f"start must be 'plus' or 'zero', got {self.start!r}")
-        if self.mesh is not None or self.n_devices is not None:
-            raise NotImplementedError("the sharded pool screen is not ported yet")
 
 
 @dataclass(frozen=True)
@@ -212,13 +218,20 @@ def _energies(states, diagonal: bool, operands) -> torch.Tensor:
     """<H> [B] of states [B, 2, 2^n]: the table's expectation, or the term
     scan of a general operator."""
     if diagonal:
-        return ((states[:, 0] * states[:, 0] + states[:, 1] * states[:, 1]) * operands).sum(-1)
+        return row_sum((states[:, 0] * states[:, 0] + states[:, 1] * states[:, 1]) * operands)
     return general_pauli_expectation_real(states, *operands)
 
 
 def screen_pool(state, pool_t, pool_c, pool_a, operands, n_qubits, diagonal) -> np.ndarray:
     """d<H>/d theta at theta = 0 of appending each candidate to ``state``
-    [2, 2^n]: [C] float32, the reference's ``_screen_pool``."""
+    [2, 2^n]: [C] float32, the reference's ``_screen_pool``.  It runs in
+    ``batch_invariant.scope``, so a candidate's gradient does not depend on
+    the batch it shares, and :func:`screen_pool_sharded` equals it."""
+    with batch_invariant.scope():
+        return _screen(state, pool_t, pool_c, pool_a, operands, n_qubits, diagonal)
+
+
+def _screen(state, pool_t, pool_c, pool_a, operands, n_qubits, diagonal) -> np.ndarray:
     gates = _Gates(pool_t, pool_c, pool_a)
     grads = np.zeros(len(gates.target), np.float32)
     per_state = state.numel() * state.element_size()
@@ -239,6 +252,36 @@ def screen_pool(state, pool_t, pool_c, pool_a, operands, n_qubits, diagonal) -> 
                 (grad,) = torch.autograd.grad(_energies(out, diagonal, operands).sum(), theta)
             grads[index] = grad.cpu().numpy()
     return grads
+
+
+def screen_pool_sharded(
+    mesh, state, pool_t, pool_c, pool_a, operands, n_qubits, diagonal
+) -> np.ndarray:
+    """:func:`screen_pool` over a population mesh: the candidate axis is
+    padded to a multiple of the mesh size with all-identity candidates
+    (whose gradient is exactly 0; they are cut off after), cut into one
+    contiguous block per device, and each block screens its candidates
+    against the replicated ``state`` (the reference's
+    ``_screen_pool_sharded``).  Each candidate's arithmetic is that of the
+    single-device screen."""
+    from queasars_tpu_torch.parallel.mesh import run_blocks
+
+    n_candidates = len(pool_t)
+    pad = -n_candidates % mesh.size
+    if pad:
+        pool_t = np.concatenate([pool_t, np.zeros((pad, n_qubits), np.int32)])
+        pool_c = np.concatenate([pool_c, np.full((pad, n_qubits), -1, np.int32)])
+        pool_a = np.concatenate([pool_a, np.zeros((pad, n_qubits, 3), np.float32)])
+
+    def block(pa, ra):
+        types, controls, amask = (t.cpu().numpy() for t in pa)
+        block_state, block_operands = ra
+        return torch.as_tensor(screen_pool(
+            block_state, types, controls, amask, block_operands, n_qubits, diagonal
+        ))
+
+    grads = run_blocks(mesh, block, (pool_t, pool_c, pool_a), (state, operands))
+    return grads.numpy()[:n_candidates]
 
 
 class _Ansatz:
@@ -321,6 +364,11 @@ class AdaptVQEMinimumEigensolver:
             )
         pool_t, pool_c, pool_a, labels = _build_pool(n, cfg.pool)
         ansatz = _Ansatz(initial, n, cfg.max_depth, device)
+        mesh = cfg.mesh
+        if mesh is None and cfg.n_devices is not None:
+            from queasars_tpu_torch.parallel.mesh import mesh_of
+
+            mesh = mesh_of(cfg.n_devices, cfg.device)
 
         history: list[AdaptVQEIterationRecord] = []
         converged = False
@@ -331,7 +379,12 @@ class AdaptVQEMinimumEigensolver:
         for depth in range(cfg.max_depth):
             with torch.no_grad():
                 state = ansatz.state(ansatz.angles)
-            grads = screen_pool(state, pool_t, pool_c, pool_a, operands, n, diagonal)
+            if mesh is None:
+                grads = screen_pool(state, pool_t, pool_c, pool_a, operands, n, diagonal)
+            else:
+                grads = screen_pool_sharded(
+                    mesh, state, pool_t, pool_c, pool_a, operands, n, diagonal
+                )
             n_evals += len(labels)
             pick = int(np.argmax(np.abs(grads)))
             g_pick = float(grads[pick])

@@ -19,8 +19,15 @@ off, COBYLA, an evaluator without objective operands),
 evaluator (``evaluator=``, ``sim/external.py``) or a black-box bitstring
 objective (:meth:`EvolvingAnsatzMinimumEigensolver.compute_minimum_function_value`)
 drives the optimizers' host-stepped loops.  Checkpoint and resume write and
-read the JAX package's format (``solver/checkpoint.py``).  Not ported yet,
-refused with ``NotImplementedError``: the device mesh.
+read the JAX package's format (``solver/checkpoint.py``).  A population
+mesh (``mesh`` / ``n_devices``, ``parallel/mesh.py``) is attached to every
+evaluator the driver builds, so every population evaluation and search runs
+block by block over its devices (the reference's dask-executor seam,
+base/evolutionary_algorithm.py:110-118, selection.py:75-84); an injected
+evaluator keeps its own placement, as in the reference.  Not ported yet:
+amplitude sharding, which raises ``NotImplementedError`` wherever the
+reference would shard amplitudes (``shard_amplitudes=True``, or None with a
+mesh and more than 20 qubits).
 """
 
 from __future__ import annotations
@@ -98,7 +105,16 @@ class EvolvingAnsatzMinimumEigensolverConfiguration:
         ``checkpoint_path`` (by either package); the solve continues where
         it stopped and reproduces the uninterrupted run's remaining
         trajectory
-    :param mesh / n_devices: not ported yet (must be None)
+    :param mesh: a :class:`~queasars_tpu_torch.parallel.mesh.PopulationMesh`
+        to split the population axis over: every evaluation and search
+        then runs block by block on its devices
+    :param n_devices: shorthand for ``mesh``: ``population_mesh(n_devices)``
+        over the first cards, or ``n_devices`` CPU blocks when ``device`` is
+        the CPU
+    :param shard_amplitudes / amp_devices / amp_local_qubits: the
+        reference's amplitude sharding (None / None / 20); not ported yet:
+        where the reference would shard amplitudes the solve raises
+        ``NotImplementedError``
     :param parameter_order: "canonical" or "qiskit" flat-parameter order
     :param reuse_selection_energies: selection reuses the exact final
         energies of the preceding last-layer search (None = on)
@@ -123,6 +139,9 @@ class EvolvingAnsatzMinimumEigensolverConfiguration:
     parameter_order: str = "canonical"
     reuse_selection_energies: Optional[bool] = None
     device: Optional[object] = None
+    shard_amplitudes: Optional[bool] = None
+    amp_devices: Optional[int] = None
+    amp_local_qubits: int = 20
 
     def __post_init__(self):
         if (
@@ -143,8 +162,6 @@ class EvolvingAnsatzMinimumEigensolverConfiguration:
                 "provide a configured_sampler and/or a configured_estimator "
                 "(or inject an external evaluator)"
             )
-        if self.mesh is not None or self.n_devices is not None:
-            raise NotImplementedError("the device mesh is not ported yet")
 
 
 class EvolvingAnsatzMinimumEigensolver:
@@ -155,6 +172,25 @@ class EvolvingAnsatzMinimumEigensolver:
     def __init__(self, configuration: EvolvingAnsatzMinimumEigensolverConfiguration):
         self.configuration = configuration
         self.logger = logging.getLogger(__name__)
+
+    def _resolve_mesh(self):
+        """The population mesh to run on (None = the configured device)."""
+        if self.configuration.mesh is not None:
+            return self.configuration.mesh
+        if self.configuration.n_devices is not None:
+            from queasars_tpu_torch.parallel.mesh import mesh_of
+
+            return mesh_of(self.configuration.n_devices, self.configuration.device)
+        return None
+
+    def _refuse_amplitude_sharding(self, mesh, n_qubits: int) -> None:
+        """Raise where the reference would shard amplitudes (its
+        ``amplitude_sharding_applies``): ``shard_amplitudes=True``, or None
+        with a mesh and more than 20 qubits."""
+        requested = self.configuration.shard_amplitudes
+        if requested is False or (requested is None and (mesh is None or n_qubits <= 20)):
+            return
+        raise NotImplementedError("amplitude sharding is not ported yet")
 
     def compute_minimum_eigenvalue(
         self,
@@ -178,20 +214,27 @@ class EvolvingAnsatzMinimumEigensolver:
         if self.configuration.evaluator is not None:
             return self._solve_with_injected_evaluator(operator, aux_operators, initial_state)
 
+        mesh = self._resolve_mesh()
+
         def build_evaluator(op: PauliSum) -> BaseCircuitEvaluator:
             config = self.configuration
+            self._refuse_amplitude_sharding(mesh, op.n_qubits)
             if config.configured_estimator is not None:
-                return StatevectorExpectationEvaluator(
+                evaluator = StatevectorExpectationEvaluator(
                     operator=op, alpha=1.0, initial_state=initial_state,
                     precision=config.configured_estimator.precision or 0.0,
                     seed=config.configured_estimator.seed, device=config.device,
                 )
-            sampler = config.configured_sampler
-            return SamplerExpectationEvaluator(
-                operator=op, shots=sampler.shots, alpha=config.distribution_alpha_tail,
-                seed=sampler.seed, initial_state=initial_state, device=config.device,
-                shot_allocation=sampler.shot_allocation,
-            )
+            else:
+                sampler = config.configured_sampler
+                evaluator = SamplerExpectationEvaluator(
+                    operator=op, shots=sampler.shots, alpha=config.distribution_alpha_tail,
+                    seed=sampler.seed, initial_state=initial_state, device=config.device,
+                    shot_allocation=sampler.shot_allocation,
+                )
+            if mesh is not None:
+                evaluator.set_mesh(mesh)
+            return evaluator
 
         evaluator = build_evaluator(operator)
         aux_evaluators: ListOrDict = None
@@ -272,12 +315,17 @@ class EvolvingAnsatzMinimumEigensolver:
         if config.configured_sampler is None:
             raise ValueError("compute_minimum_function_value requires a configured_sampler!")
 
+        mesh = self._resolve_mesh()
+
         def build_evaluator(op: BitstringEvaluator) -> BaseCircuitEvaluator:
-            return BitstringFunctionEvaluator(
+            evaluator = BitstringFunctionEvaluator(
                 bitstring_evaluator=op, shots=config.configured_sampler.shots,
                 alpha=config.distribution_alpha_tail, seed=config.configured_sampler.seed,
                 initial_state=initial_state, device=config.device,
             )
+            if mesh is not None:
+                evaluator.set_mesh(mesh)
+            return evaluator
 
         evaluator = build_evaluator(operator)
         aux_evaluators: ListOrDict = None

@@ -69,7 +69,17 @@ class EVQEMinimumEigensolverConfiguration:
     :param checkpoint_path / resume_from_checkpoint: write the full solver
         state after every generation's pipeline pass / resume from such a
         file (the driver configuration's knobs)
-    :param mesh / n_devices: not ported yet (must be None)
+    :param mesh / n_devices: split the population axis over a population
+        mesh (``parallel/mesh.py``): every evaluation and search runs block
+        by block on its devices, the counterpart of the reference's dask
+        cluster executor (evqe.py:232-236); trajectories are bit-identical
+        across block counts.  ``n_devices`` builds ``population_mesh(
+        n_devices)``, or ``n_devices`` CPU blocks when ``device`` is the CPU
+    :param shard_amplitudes / amp_devices / amp_local_qubits: the
+        reference's amplitude sharding knobs; not ported yet, so the solve
+        raises ``NotImplementedError`` where the reference would shard
+        amplitudes (``shard_amplitudes=True``, or None with a mesh and more
+        than 20 qubits)
     :param device: where the solve runs (None = the CUDA device)
     :param evaluator: a pluggable external evaluation backend -- a
         ``BaseCircuitEvaluator`` instance or a factory ``operator ->
@@ -104,6 +114,9 @@ class EVQEMinimumEigensolverConfiguration:
     resume_from_checkpoint: Optional[str] = None
     mesh: Optional[object] = None
     n_devices: Optional[int] = None
+    shard_amplitudes: Optional[bool] = None
+    amp_devices: Optional[int] = None
+    amp_local_qubits: int = 20
     parameter_order: str = "canonical"
     reuse_selection_energies: Optional[bool] = None
     device: Optional[object] = None
@@ -227,6 +240,9 @@ class EVQEMinimumEigensolver(EvolvingAnsatzMinimumEigensolver):
             resume_from_checkpoint=configuration.resume_from_checkpoint,
             mesh=configuration.mesh,
             n_devices=configuration.n_devices,
+            shard_amplitudes=configuration.shard_amplitudes,
+            amp_devices=configuration.amp_devices,
+            amp_local_qubits=configuration.amp_local_qubits,
             parameter_order=configuration.parameter_order,
             reuse_selection_energies=configuration.reuse_selection_energies,
             device=configuration.device,

@@ -113,6 +113,7 @@ class MoGVQEMinimumEigensolver(EvolvingAnsatzMinimumEigensolver):
             resume_from_checkpoint=configuration.resume_from_checkpoint,
             mesh=configuration.mesh,
             n_devices=configuration.n_devices,
+            shard_amplitudes=configuration.shard_amplitudes,
             parameter_order=configuration.parameter_order,
             reuse_selection_energies=configuration.reuse_selection_energies,
             device=configuration.device,

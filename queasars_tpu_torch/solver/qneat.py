@@ -21,9 +21,10 @@ generation tick, like the reference's EVQE selection):
 
 ``checkpoint_path`` / ``resume_from_checkpoint`` persist and restore the
 full solver state (a QNEAT population, operator RNGs, ledger, trajectory,
-evaluator randomness) exactly like the EVQE facade.  The device mesh
-(``mesh`` / ``n_devices``) and amplitude sharding (``shard_amplitudes`` /
-``amp_devices``) are not ported yet and raise ``NotImplementedError``.
+evaluator randomness) exactly like the EVQE facade.  A population mesh
+(``mesh`` / ``n_devices``) splits every evaluation and polish over its
+devices, as in the EVQE facade; amplitude sharding (``shard_amplitudes`` /
+``amp_devices``) is not ported yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -78,7 +79,8 @@ class QNEATMinimumEigensolverConfiguration:
         facade semantics)
     :param checkpoint_path / resume_from_checkpoint: full-state checkpoint
         write / resume (EVQE facade semantics)
-    :param mesh / n_devices / shard_amplitudes / amp_devices: not ported
+    :param mesh / n_devices: population mesh (EVQE facade semantics)
+    :param shard_amplitudes / amp_devices: amplitude sharding, not ported
         yet (must be None)
     :param device: where the solve runs (None = the CUDA device)
     """

@@ -7,8 +7,8 @@ slot-kernel route the port follows on the CPU) solve the JAX CLI tests'
 2x2 JSSP instance and 2-variable QUBO: the summaries have the same keys,
 generations, evaluation ledger, likeliest state and decoded schedule or
 bits.  Then checkpoint and resume through the CLI (the resumed run prints
-the uninterrupted run's summary), ``--algorithm qneat``, the refused mesh
-flags, and one subprocess run.
+the uninterrupted run's summary), ``--algorithm qneat``, ``--n-devices``
+over CPU blocks, the refused mesh flags, and one subprocess run.
 """
 
 from __future__ import annotations
@@ -123,10 +123,31 @@ def test_cli_qneat_and_its_resume(inputs, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--n-devices", "2"], ["--shard-amplitudes"]])
 def test_cli_refuses_the_mesh_flags(inputs, flag):
-    with pytest.raises(SystemExit, match="device mesh"):
-        main([*_jssp_args(inputs, "--generations", "1"), *flag, "--device", "cpu"])
+    """Both mesh flags are EVQE-only, as in the JAX CLI; an EVQE solve
+    refuses ``--shard-amplitudes`` (amplitude sharding is not ported) and
+    runs ``--n-devices`` (:func:`test_cli_n_devices_splits_the_population`)."""
+    with pytest.raises(SystemExit, match="EVQE-only"):
+        main([*_jssp_args(inputs, "--generations", "1"), *flag, "--algorithm", "qneat",
+              "--device", "cpu"])
+    if flag == ["--shard-amplitudes"]:
+        with pytest.raises(SystemExit, match="amplitude sharding"):
+            main([*_jssp_args(inputs, "--generations", "1"), *flag, "--device", "cpu"])
     with pytest.raises(SystemExit, match="requires --checkpoint"):
         main([*_jssp_args(inputs, "--generations", "1"), "--resume", "--device", "cpu"])
+
+
+def test_cli_n_devices_splits_the_population(inputs, capsys, monkeypatch):
+    """``--n-devices N`` with ``--device cpu`` splits the solve over N CPU
+    blocks: 1 and 4 blocks print the same summary bit for bit, and it equals
+    the JAX CLI's ``--n-devices 4`` (on its 8-device CPU mesh) in the
+    compared keys."""
+    args = _jssp_args(inputs, "--generations", "2")
+    one = _port([*args, "--n-devices", "1"], capsys)
+    four = _port([*args, "--n-devices", "4"], capsys)
+    assert one == four
+    theirs = _jax([*args, "--n-devices", "4"], capsys, monkeypatch)
+    for key in COMPARED:
+        assert four[key] == theirs[key], key
 
 
 def test_cli_runs_as_a_module(inputs):

@@ -1241,3 +1241,80 @@ def test_bitstring_evaluator_on_the_card_equals_the_cpu(cuda_device, monkeypatch
         got, want = card.evaluate_packed(packed), cpu.evaluate_packed(packed)
         assert card._counter == cpu._counter == call
         assert np.all(np.abs(got - want) <= flips * 2 * np.abs(values).max() / (alpha * 256))
+
+
+def _mesh_solver(blocks, device, operator_kind):
+    """An EVQE solve of 14 qubits over ``blocks`` blocks of the card, for
+    the kinds of objective whose plain torch reductions a mesh runs."""
+    from queasars_tpu_torch.optim import (
+        BatchedGradientDescent,
+        BatchedNFT,
+        GradientDescentConfig,
+        NFTConfig,
+    )
+    from queasars_tpu_torch.parallel import population_mesh
+    from queasars_tpu_torch.solver import (
+        ConfiguredEstimator,
+        ConfiguredSampler,
+        EVQEMinimumEigensolver,
+        EVQEMinimumEigensolverConfiguration,
+    )
+
+    optimizer = {
+        "general exact": BatchedNFT(NFTConfig(maxiter=6, five_point=True)),
+        "grouped sampler": BatchedNFT(NFTConfig(maxiter=6, five_point=True)),
+        "gradient": BatchedGradientDescent(GradientDescentConfig(maxiter=4)),
+    }[operator_kind]
+    sampler = operator_kind == "grouped sampler"
+    return EVQEMinimumEigensolver(EVQEMinimumEigensolverConfiguration(
+        configured_estimator=None if sampler else ConfiguredEstimator(),
+        configured_sampler=ConfiguredSampler(shots=256, seed=1) if sampler else None,
+        optimizer=optimizer, optimizer_n_circuit_evaluations=None, max_generations=2,
+        max_circuit_evaluations=None, termination_criterion=None, random_seed=4,
+        population_size=10, speciation_genetic_distance_threshold=2,
+        selection_alpha_penalty=0.1, selection_beta_penalty=0.1,
+        parameter_search_probability=0.5, topological_search_probability=0.5,
+        layer_removal_probability=0.1, use_tournament_selection=True, tournament_size=2,
+        device=device, mesh=population_mesh(devices=[device] * blocks),
+    ))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["general exact", "grouped sampler", "gradient"])
+def test_mesh_solves_on_the_card_are_bit_identical_across_block_counts(cuda_device, kind):
+    """The mesh's contract on the card where plain torch reductions carry
+    the energies (the term scan, grouped shot means, autograd): 1 and 4
+    blocks of one card give the same trajectory bit for bit (n=14)."""
+    from queasars_tpu_torch.paulis import PauliSum, pauli_z_string
+    from queasars_tpu_torch.problems.spin_chains import transverse_field_ising
+
+    n = 14
+    if kind == "gradient":
+        operator = PauliSum.sum([pauli_z_string(q, n) * float(q + 1) for q in range(n)])
+    else:
+        operator = transverse_field_ising(n, coupling=1.0, field=0.9)
+    results = [_mesh_solver(blocks, f"{cuda_device.type}:0", kind)
+               .compute_minimum_eigenvalue(operator) for blocks in (1, 4)]
+    one, four = ([list(g.expectation_values) for g in r.population_evaluation_results]
+                 for r in results)
+    assert one == four
+    assert results[0].eigenvalue == results[1].eigenvalue
+    assert results[0].best_individual == results[1].best_individual
+
+
+@pytest.mark.cuda
+def test_exact_cvar_on_the_card_is_bit_identical_across_block_counts(cuda_device):
+    from queasars_tpu_torch.parallel import population_mesh
+    from queasars_tpu_torch.paulis import PauliSum, pauli_z_string
+    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+
+    n = 14
+    operator = PauliSum.sum([pauli_z_string(q, n) * float(q % 3 + 1) for q in range(n)])
+    population = EVQEPopulation.random_population(n, 3, 12, True, random_seed=5)
+    packed = PackedPopulation.pack(list(population.individuals))
+    got = []
+    for blocks in (1, 4):
+        evaluator = StatevectorExpectationEvaluator(operator, alpha=0.5, device=cuda_device)
+        evaluator.set_mesh(population_mesh(devices=["cuda:0"] * blocks))
+        got.append(evaluator.evaluate_packed(packed))
+    np.testing.assert_array_equal(got[0], got[1])

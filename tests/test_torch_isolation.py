@@ -3,7 +3,8 @@
 ``queasars_tpu_torch`` (the optimizers, the gradient optimizer, MoG-VQE,
 QAOA, ADAPT-VQE, QNEAT, the QUBO encoders, the exact JSSP oracle, the
 command line ``__main__``, the external evaluators, the JSON and QASM
-codecs, checkpoints, profiling and the two plotting modules, which import
+codecs, checkpoints, profiling, the population mesh and its multi-process
+runtime (``parallel``), and the two plotting modules, which import
 matplotlib only when they draw, among them) and ``chip_smoke`` (not run)
 import, and ``chip_smoke`` refuses to run without a CUDA device."""
 
@@ -30,7 +31,8 @@ required = ["queasars_tpu_torch." + m for m in (
     "problems.jssp.exact_solver", "utils.bitstring_evaluation", "__main__", "sim.external",
     "genome.serialization", "genome.qasm", "problems.jssp.serialization", "solver.serialization",
     "solver.checkpoint", "utils.profiling", "solver.visualization",
-    "problems.jssp.visualization")]
+    "problems.jssp.visualization", "parallel", "parallel.mesh", "parallel.multihost",
+    "utils.batch_invariant")]
 assert set(required) <= set(names), sorted(set(required) - set(names))
 for name in names:
     importlib.import_module(name)

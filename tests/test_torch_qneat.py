@@ -203,9 +203,12 @@ def test_solve_matches_jax_generation_by_generation(polish):
 
 
 def test_unported_knobs_are_refused():
+    """Amplitude sharding is refused; the population mesh is ported
+    (``tests/test_torch_mesh_solver.py`` runs it)."""
     base = dict(configured_estimator=ConfiguredEstimator(), **_settings(None))
-    for knob in (dict(amp_devices=2), dict(shard_amplitudes=True), dict(n_devices=2)):
+    for knob in (dict(amp_devices=2), dict(shard_amplitudes=True)):
         with pytest.raises(NotImplementedError):
             QNEATMinimumEigensolver(QNEATMinimumEigensolverConfiguration(**base, **knob))
+    assert QNEATMinimumEigensolverConfiguration(**base, n_devices=2).n_devices == 2
     with pytest.raises(ValueError):
         QNEATMinimumEigensolverConfiguration(**{**base, "population_size": 1})

@@ -133,8 +133,9 @@ def test_knobs_resolve_as_jax_on_every_operand_kind(monkeypatch):
         ours, theirs = objective_operands(evaluator), jax_operands(reference)
         for cache in flags:
             for last_layer in (None, last):
-                assert prefix_enabled(cache, ours, last_layer) == jax_prefix_enabled(
-                    cache, theirs, None, last_layer), (name, cache, last_layer)
+                for mesh in (None, "a mesh"):
+                    assert prefix_enabled(cache, ours, mesh, last_layer) == jax_prefix_enabled(
+                        cache, theirs, mesh, last_layer), (name, cache, last_layer, mesh)
         for sweep in flags:
             for five_point in (False, True):
                 port = BatchedNFT(NFTConfig(in_kernel_sweep=sweep, five_point=five_point))
