@@ -164,12 +164,34 @@ with elapsed seconds:
    both ranks equal the one-process two-block solve bit for bit;
 30. ADAPT-VQE (b)'s first pool screen on four blocks equal to the unsharded
    screen bit for bit; ``python -m queasars_tpu_torch solve --n-devices 1``
-   on config 4 (slot route) equal to the ``population_mesh(1)`` solve.
+   on config 4 (slot route) equal to the ``population_mesh(1)`` solve;
+31. amplitude sharding's primitives at n=22 (config 8's table, P=16, 6
+   layers) on the 1x1, 1x2, 1x4 and 2x2 meshes of the card, per route (fold,
+   per-gate): energies bit-equal across the factorizations and within
+   1e-5 * max|table| of row 6 / row 1 unsharded; every shard kernel (rows
+   S1-S4, ``csrc/shard_kernels.cu``) bit-equal to its plain version at the
+   1x4 shard shape, timed beside its bound (and ``torch.cumsum`` for S4);
+32. config 8 (experiments/exp_solve_n22.py:70-78: 22 qubits, P=16, NFT
+   maxiter 30, 3 generations) on four cells of the card (``shard_amplitudes``
+   unset, so 1x4) per route, the likeliest bitstring's energy against the
+   Hamiltonian's float64 terms; the 2x2 factorization (generations cut,
+   printed as ``reduced``) gives the same trajectory bit for bit;
+33. config 7 (:54-65: 21 qubits, 512 shots, CVaR 0.5; generations cut)
+   with ``shard_amplitudes=True`` on 2 cells; exact CVaR bit-equal on 1, 2
+   and 4 cells; TFIM-20 grouped shots bit-equal on 2 and 4; TFIM-20's
+   general exact energies against the unsharded term scan;
+34. sharded QAOA energies and gradients on config 4's table, bit-equal on 2
+   and 4 cells and near the unsharded QAOA, and a cut sharded QAOA solve;
+   ``--shard-amplitudes --n-devices 1`` through the CLI in process on config
+   8 (1 generation) equal to the 1x4 solve; two gloo processes with one
+   shard each on the card, whose exact energies and last-layer NFT sweep
+   equal one process with 2 cells.
 
 Phases 12-15 print their solve seconds, evaluations per second, the card's
 name and power limit, and their launches per kernel row; phases 17-26 also
 their peak device memory; phases 27-30 report their launch counts apart
-from the earlier phases'.
+from the earlier phases'; phases 31-34 print seconds, evaluations/s, peak
+memory and launches per row, and the shard exchanges' bytes.
 
 The line before the last is a JSON record of every kernel; the last line
 is ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -264,6 +286,8 @@ ROWS = {
     "nft_layer_sweep_folded": 8, "population_probs_folded": 9,
     "sampled_shot_indices_folded": 10, "grouped_shot_indices_folded": 11,
     "compact_energies_exact": 12, "compact_probs": 13,
+    "shard_pair_combine": "S1", "shard_group_product": "S2", "shard_diag_phase": "S3",
+    "shard_running_sum": "S4",
 }
 #: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 FLOP/s outside
 #: the tensor cores
@@ -1406,12 +1430,14 @@ class _GenerationClock:
         return False
 
 
-def baseline_solver(optimizer, settings, clock=None, penalty=0.1, mog=False, mesh=None):
+def baseline_solver(optimizer, settings, clock=None, penalty=0.1, mog=False, mesh=None,
+                    amp_devices=None):
     """An exact-estimator solver under the repository's ``evqe_config``
     (experiments/exp_baseline_configs.py:64-83) on the card: ``settings``
     gives population, generations, seed and optionally ``pack_min_layers``;
     ``penalty`` both selection penalties; ``mog`` the MoG-VQE facade;
-    ``clock`` is its termination criterion; ``mesh`` a population mesh."""
+    ``clock`` is its termination criterion; ``mesh`` a population mesh, whose
+    amplitude axis ``amp_devices`` sets (None: the driver's rule)."""
     from queasars_tpu_torch.solver import (
         ConfiguredEstimator,
         EVQEMinimumEigensolver,
@@ -1439,6 +1465,7 @@ def baseline_solver(optimizer, settings, clock=None, penalty=0.1, mog=False, mes
         pack_min_layers=settings.get("pack_min_layers"),
         device=DEVICE,
         mesh=mesh,
+        amp_devices=amp_devices,
     ))
 
 
@@ -1526,18 +1553,19 @@ def tfim20_solver(clock=None):
 
 
 def reset_launch_counts():
-    from queasars_tpu_torch.sim import compact_kernels, fold_kernels, slot_kernels
+    from queasars_tpu_torch.sim import compact_kernels, fold_kernels, shard_kernels, slot_kernels
 
     slot_kernels.reset_launch_counts()
     fold_kernels.reset_launch_counts()
     compact_kernels.reset_launch_counts()
+    shard_kernels.reset_launch_counts()
 
 
 def launch_counts() -> dict:
-    from queasars_tpu_torch.sim import compact_kernels, fold_kernels, slot_kernels
+    from queasars_tpu_torch.sim import compact_kernels, fold_kernels, shard_kernels, slot_kernels
 
     return {**slot_kernels.launch_counts, **fold_kernels.launch_counts,
-            **compact_kernels.launch_counts}
+            **compact_kernels.launch_counts, **shard_kernels.launch_counts}
 
 
 def use_route(route: str) -> None:
@@ -1744,7 +1772,8 @@ def timed_solve(solver, operator):
 def per_row(launches) -> dict:
     """The non-zero launch counts by kernel row (the sampler epilogue, part
     of row 5, by its name)."""
-    order = sorted(launches, key=lambda k: ROWS.get(k, len(ROWS) + 1))
+    order = sorted(launches, key=lambda k: (0, ROWS[k]) if isinstance(ROWS.get(k), int)
+                   else (1, str(ROWS.get(k, k))))
     return {f"row {ROWS[k]}" if k in ROWS else k: launches[k] for k in order if launches[k]}
 
 
@@ -3082,9 +3111,10 @@ def phase_multihost(card, hamiltonian):
         f"{SOLVE['generations']} generations cut to {MULTIHOST4['generations']}")
 
 
-def cli_solver(mesh):
+def cli_solver(mesh, generations=None, shard_amplitudes=None, settings=CLI4):
     """The command line's EVQE solve (``queasars_tpu_torch/__main__.py``) on
-    config 4's settings, with ``mesh``."""
+    ``settings`` (config 4's by default), with ``mesh``, ``generations``
+    (None: the settings') and ``shard_amplitudes``."""
     from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
     from queasars_tpu_torch.solver import (
         ConfiguredEstimator,
@@ -3095,14 +3125,14 @@ def cli_solver(mesh):
 
     return EVQEMinimumEigensolver(EVQEMinimumEigensolverConfiguration(
         configured_estimator=ConfiguredEstimator(),
-        configured_sampler=ConfiguredSampler(shots=2048, seed=CLI4["seed"]),
-        optimizer=BatchedNFT(NFTConfig(maxiter=CLI4["nft_maxiter"])),
+        configured_sampler=ConfiguredSampler(shots=2048, seed=settings["seed"]),
+        optimizer=BatchedNFT(NFTConfig(maxiter=settings["nft_maxiter"])),
         optimizer_n_circuit_evaluations=None,
-        max_generations=CLI4["generations"],
+        max_generations=settings["generations"] if generations is None else generations,
         max_circuit_evaluations=None,
         termination_criterion=None,
-        random_seed=CLI4["seed"],
-        population_size=CLI4["population"],
+        random_seed=settings["seed"],
+        population_size=settings["population"],
         speciation_genetic_distance_threshold=2,
         selection_alpha_penalty=CLI_EVQE["penalties"][0],
         selection_beta_penalty=CLI_EVQE["penalties"][1],
@@ -3113,6 +3143,7 @@ def cli_solver(mesh):
         tournament_size=CLI_EVQE["tournament_size"],
         device=DEVICE,
         mesh=mesh,
+        shard_amplitudes=shard_amplitudes,
     ))
 
 
@@ -3177,6 +3208,614 @@ def phase_mesh_adapt_and_cli(card, hamiltonian, instance_path, makespan):
         require(summary[key] == value, f"--n-devices 1's {key} {summary[key]} differs from the "
                                        f"population_mesh(1) solve's {value}")
     say("  check: the CLI's --n-devices 1 summary equals the population_mesh(1) solve")
+
+
+# ---------------------------------------------------------------------------
+# amplitude sharding (phases 31-34)
+# ---------------------------------------------------------------------------
+
+#: config 8 (experiments/exp_solve_n22.py:70-78): 22-qubit 3x3 JSSP, exact
+#: estimator, P=16, NFT maxiter 30, 3 generations; the 2 x 2 factorization's
+#: run is cut to ``cut`` generations (printed as ``reduced``)
+CONFIG8 = dict(qubits=22, makespan=7, population=16, maxiter=30, generations=3,
+               pack_min_layers=6, seed=0, cut=1)
+#: config 7 (:54-65): 21-qubit instance, 512 shots (seed 0), CVaR 0.5,
+#: tournament 2; its 3 generations cut to 1 on 2 blocks
+CONFIG7 = dict(qubits=21, makespan=6, population=16, maxiter=30, generations=1, shots=512,
+               sampler_seed=0, alpha=0.5, tournament_size=2, pack_min_layers=6, seed=0)
+#: the primitives' population (phase 31) and the meshes of one card
+AMP_PRIMITIVES = dict(population=16, layers=6, seed=22)
+AMP_MESHES = {"1x1": (1, 1), "1x2": (1, 2), "1x4": (1, 4), "2x2": (2, 2)}
+#: QAOA on config 4's table (phase 34): starts and reps of QAOAConfiguration's
+#: defaults; the cut solve's Adam steps
+AMP_QAOA = dict(starts=8, reps=2, maxiter=10)
+#: the two-process amplitude case (phase 34): P=4 (padded to 8) on config 8's
+#: operator, a last-layer NFT sweep of 4 steps
+AMP_MULTIHOST = dict(population=4, layers=6, seed=5, maxiter=4)
+SHARD_SOURCE = "queasars_tpu_torch/csrc/shard_kernels.cu"
+#: the amplitude-shard kernels (port-only rows: the JAX package's sharded
+#: engine is XLA code) and the XLA function each stands for
+SHARD_KERNELS = {
+    "shard_pair_combine": (SHARD_SOURCE, "queasars_tpu/sim/sharded_statevector.py:87"),
+    "shard_group_product": (SHARD_SOURCE, "queasars_tpu/sim/sharded_fold.py:105"),
+    "shard_diag_phase": (SHARD_SOURCE, "queasars_tpu/sim/sharded_fold.py:167"),
+    "shard_running_sum": (SHARD_SOURCE, "queasars_tpu/sim/sharded_statevector.py:238"),
+}
+
+
+def card_amp_mesh(n_pop, n_amp):
+    from queasars_tpu_torch.parallel.amplitude import pop_amp_mesh
+
+    return pop_amp_mesh(n_pop, n_amp, devices=[f"{DEVICE}:0"] * (n_pop * n_amp))
+
+
+def use_shard_route(route: str) -> None:
+    """``QUEASARS_SHARD_FOLD=0`` for the per-gate route, unset (the default)
+    for the fold route."""
+    import os
+
+    if route == "per-gate":
+        os.environ["QUEASARS_SHARD_FOLD"] = "0"
+    else:
+        os.environ.pop("QUEASARS_SHARD_FOLD", None)
+
+
+def exchange_line() -> str:
+    from queasars_tpu_torch.parallel.amplitude import exchange_bytes
+
+    return ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in exchange_bytes.items())
+
+
+def host_energy(hamiltonian, state: int) -> float:
+    """A basis state's energy from the Hamiltonian's terms, float64 on the
+    host."""
+    import numpy as np
+
+    from queasars_tpu_torch.paulis.diagonal import diagonal_terms
+
+    coeffs, masks = diagonal_terms(hamiltonian)
+    parity = np.array([bin(int(state) & int(m)).count("1") & 1 for m in masks], np.float64)
+    return float((1.0 - 2.0 * parity) @ coeffs)
+
+
+def matmul_group_operands(state, ut, local_bits, q0, m):
+    """``torch.matmul``'s operands for S2's product on one shard: the
+    complex matrices U [B, d, d] and the group vectors as the columns of
+    [B, d, instances] (one batched product per row)."""
+    import torch
+
+    rows, d = state.shape[0], 1 << m
+    x = torch.complex(state[:, 0], state[:, 1]).reshape(
+        rows, (1 << local_bits) >> (q0 + m), d, 1 << q0)
+    columns = x.transpose(1, 2).reshape(rows, d, -1).contiguous()
+    u = torch.complex(ut[:, 0], ut[:, 1]).transpose(-1, -2).contiguous()
+    return u, columns
+
+
+def matmul_group_product(state, ut, local_bits, q0, m):
+    """S2's product by one ``torch.matmul`` (TF32 off by the caller), back
+    in the shard's [B, 2, 2^local_bits] layout."""
+    import torch
+
+    rows, d = state.shape[0], 1 << m
+    u, columns = matmul_group_operands(state, ut, local_bits, q0, m)
+    out = torch.matmul(u, columns).reshape(rows, d, -1, 1 << q0).transpose(1, 2)
+    return torch.stack([out.real, out.imag], dim=1).reshape(state.shape)
+
+
+def group_product_mesh_gaps(state, ut, n, q0, m):
+    """S2 and ``torch.matmul`` on the n-qubit rows of ``state`` cut as the
+    1x1, 1x2, 1x4 and 2x2 meshes cut it (rows over pop, amplitudes over
+    amp): per implementation and mesh, the largest difference from the 1x1
+    result (0.0: equal bits)."""
+    import torch
+
+    from queasars_tpu_torch.sim import shard_kernels as shk
+
+    gaps = {}
+    for label, product in (("S2", shk.group_product), ("torch.matmul", matmul_group_product)):
+        whole = None
+        for mesh, (n_pop, n_amp) in AMP_MESHES.items():
+            lb = n - n_amp.bit_length() + 1
+            got = torch.cat([
+                torch.cat([product(s.contiguous(), u, lb, q0, m) for s in rows.chunk(n_amp, dim=2)],
+                          dim=2)
+                for rows, u in zip(state.chunk(n_pop), ut.chunk(n_pop))])
+            if whole is None:
+                whole = got
+            gaps[(label, mesh)] = 0.0 if torch.equal(got, whole) else float(
+                (got - whole).abs().max())
+    return gaps
+
+
+def shard_kernel_records(n):
+    """Phase 31's kernel checks at the 1x4 shard shapes of an n-qubit state
+    (P=16): each shard kernel against its plain version on the same card
+    inputs (equal bits), ms against the plain version's, the bound and the
+    library call where there is one; then S2 and ``torch.matmul`` across
+    shard widths."""
+    import torch
+
+    from queasars_tpu_torch.sim import shard_kernels as shk
+    from queasars_tpu_torch.sim.sampling import running_sum as plain_scan
+    from queasars_tpu_torch.sim.sharded_statevector import slot_entries
+
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    rows, lb = AMP_PRIMITIVES["population"], n - 2
+    length = 1 << lb
+    state = torch.randn((rows, 2, length), generator=gen).to(DEVICE)
+    partner = torch.randn((rows, 2, length), generator=gen).to(DEVICE)
+    entries = slot_entries(torch.rand((rows, 3), generator=gen).to(DEVICE) * 6.0)
+    ctrl = torch.tensor([-1, 3] * (rows // 2), dtype=torch.int32, device=DEVICE)
+    enabled = torch.ones(rows, dtype=torch.bool, device=DEVICE)
+    ut = torch.randn((rows, 2, 128, 128), generator=gen).to(DEVICE) / 16
+    d_ctrl = torch.tensor([[2, 21, -1]] * rows, dtype=torch.int32, device=DEVICE)
+    d_tgt = torch.tensor([[20, 5, 0]] * rows, dtype=torch.int32, device=DEVICE)
+    phase = torch.randn((rows, 3, 2, 2), generator=gen).to(DEVICE)
+    probs = (state[:, 0] ** 2).contiguous()
+    work = state.clone()
+    u_c, columns_c = matmul_group_operands(state, ut, lb, 7, 7)
+    state_bytes = rows * 2 * length * 4
+    cases = {
+        "shard_pair_combine": (
+            lambda: shk.pair_combine(state, partner, entries, ctrl, enabled, lb, -1, 1), None,
+            lambda: shk.pair_combine_plain(state, partner, entries, ctrl, enabled, lb, -1, 1),
+            3 * state_bytes, rows * length * 14.0, None),
+        "shard_group_product": (
+            lambda: shk.group_product(state, ut, lb, 7, 7), None,
+            lambda: shk.group_product_plain(state, ut, lb, 7, 7),
+            2 * state_bytes + ut.numel() * 4, rows * length * 128 * 8.0,
+            lambda: torch.matmul(u_c, columns_c)),
+        "shard_diag_phase": (
+            lambda: shk.diag_phase(state.clone(), d_ctrl, d_tgt, phase, lb, 2),
+            lambda: shk.diag_phase(work, d_ctrl, d_tgt, phase, lb, 2),
+            lambda: shk.diag_phase_plain(state, d_ctrl, d_tgt, phase, lb, 2),
+            2 * state_bytes, rows * length * 3 * 6.0, None),
+        "shard_running_sum": (
+            lambda: shk.running_sum(probs, 1024), None,
+            lambda: plain_scan(probs.reshape(-1, 1024)).reshape(probs.shape),
+            2 * probs.numel() * 4, probs.numel() * 1.0,
+            lambda: torch.cumsum(probs.reshape(-1, 1024), dim=-1)),
+    }
+    library_names = {"shard_group_product": "torch.matmul (complex64, TF32 off)",
+                     "shard_running_sum": "torch.cumsum"}
+    tf32, precision = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    records = {}
+    for name, (kernel, timed, plain, moved, flops, library) in cases.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(got, want))
+        err = float((got - want).abs().max())
+        require(equal, f"{name} differs from its plain version by {err:.3e} at n={n}")
+        ms = time_ms(timed or kernel, 20)
+        plain_ms = time_ms(plain, 2)
+        library_ms = None if library is None else time_ms(library, 20)
+        records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound": bound(moved, flops), "library_ms": library_ms}
+        extra = "" if library_ms is None else f", {library_names[name]} {library_ms:.4f} ms"
+        say(f"  {name} ({rows} rows x 2^{lb}): equal bits to its plain version; {ms:.4f} ms "
+            f"(plain {plain_ms:.3f} ms{extra}), bound {records[name]['bound'][0]:.4f} ms by "
+            f"{records[name]['bound'][1]}")
+    whole = torch.randn((rows, 2, 1 << n), generator=gen).to(DEVICE)
+    gaps = group_product_mesh_gaps(whole, ut, n, 7, 7)
+    matmul_gap = float((matmul_group_product(state, ut, lb, 7, 7)
+                        - shk.group_product(state, ut, lb, 7, 7)).abs().max())
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.set_float32_matmul_precision(precision)
+    for label in ("S2", "torch.matmul"):
+        say(f"  {label} on the 1x1 / 1x2 / 1x4 / 2x2 shards of {rows} rows x 2^{n} (q0 7, m 7): "
+            f"largest gap from 1x1 " + " / ".join(f"{gaps[(label, k)]:.3e}" for k in AMP_MESHES)
+            + (f"; {matmul_gap:.3e} from S2 at 2^{lb}" if label != "S2" else ""))
+    require(all(gaps[("S2", k)] == 0.0 for k in AMP_MESHES), "S2 changes with the mesh")
+    return records
+
+
+def phase_amp_primitives(card, hamiltonian8):
+    """Phase 31: energies of P=16 six-layer genomes at n=22 on the 1x1,
+    1x2, 1x4 and 2x2 meshes of one card, per route: bit-equal across the
+    factorizations, the per-gate route within 1e-5 max|table| of row 1
+    unsharded and the fold route of row 6; then every shard kernel against
+    its plain version."""
+    import numpy as np
+    import torch
+
+    from queasars_tpu_torch.genome import EVQEPopulation, PackedPopulation
+    from queasars_tpu_torch.parallel.amplitude import reset_exchange_bytes
+    from queasars_tpu_torch.sim.sharded_evaluator import AmplitudeShardedExpectationEvaluator
+
+    use_route("fold")
+    n = hamiltonian8.n_qubits
+    cfg = AMP_PRIMITIVES
+    population = EVQEPopulation.random_population(n, cfg["layers"], cfg["population"], True,
+                                                  random_seed=cfg["seed"])
+    packed = PackedPopulation.pack(list(population.individuals), min_layers=cfg["layers"])
+    table = None
+    for route in ("fold", "per-gate"):
+        results = {}
+        for label, (n_pop, n_amp) in AMP_MESHES.items():
+            evaluator = AmplitudeShardedExpectationEvaluator(
+                hamiltonian8, card_amp_mesh(n_pop, n_amp), use_fold=route == "fold")
+            if table is None:
+                table = evaluator._table.full().to(DEVICE)
+            evaluator.evaluate_packed(packed)
+            reset_launch_counts()
+            reset_exchange_bytes()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            results[label] = evaluator.evaluate_packed(packed)
+            seconds = time.perf_counter() - start
+            say(f"phase amplitude primitives ({route} route, n={n}, P={packed.n_individuals}, "
+                f"{cfg['layers']} layers, {label}): {seconds * 1e3:.2f} ms per energies call | "
+                f"{card} | launches per row {per_row(launch_counts())} | exchanges "
+                f"{exchange_line()}")
+        first = results["1x1"]
+        for label, got in results.items():
+            require(np.array_equal(got, first), f"{route} energies on {label} differ from 1x1 "
+                                                f"by {float(np.abs(got - first).max()):.3e}")
+        unsharded = row_energies(packed, None, table, n, "fold" if route == "fold" else "slot")
+        gap = float(np.abs(unsharded.cpu().numpy() - first).max())
+        scale = float(table.abs().max())
+        require(gap <= 1e-5 * scale, f"{route} energies are {gap:.3e} from row "
+                                     f"{6 if route == 'fold' else 1} (max|table| {scale:.1f})")
+        say(f"  check: {route} energies bit-equal on 1x1, 1x2, 1x4 and 2x2; {gap:.3e} from row "
+            f"{6 if route == 'fold' else 1} unsharded (bar {1e-5 * scale:.3e})")
+    return shard_kernel_records(n)
+
+
+def config8_solver(mesh, generations, amp_devices=None):
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+
+    settings = dict(CONFIG8, generations=generations)
+    return baseline_solver(BatchedNFT(NFTConfig(maxiter=CONFIG8["maxiter"])), settings,
+                           mesh=mesh, amp_devices=amp_devices)
+
+
+def phase_config8(card, hamiltonian8, table8):
+    """Phase 32: config 8 at full width on four blocks of the card (amp 4,
+    shard_amplitudes unset), per route, and on 2 x 2 (generations cut):
+    equal trajectories; seconds, evaluations/s, peak memory, launches, the
+    eigenvalue and the likeliest bitstring's energy against the
+    Hamiltonian's float64 terms."""
+    from queasars_tpu_torch.parallel import population_mesh
+    from queasars_tpu_torch.parallel.amplitude import reset_exchange_bytes
+
+    four = population_mesh(devices=[f"{DEVICE}:0"] * 4)
+    launches = {}
+    for route in ("fold", "per-gate"):
+        use_shard_route(route)
+        reset_memory()
+        reset_exchange_bytes()
+        result, seconds, counts = timed_solve(config8_solver(four, CONFIG8["generations"]),
+                                              hamiltonian8)
+        evals = int(sum(result.circuit_evaluations))
+        likeliest = max(result.eigenstate, key=result.eigenstate.get)
+        energy = host_energy(hamiltonian8, likeliest)
+        phase_line(f"config 8 ({hamiltonian8.n_qubits} qubits, {route} route, 1x4, "
+                   f"{result.generations} generations, eigenvalue {result.eigenvalue:.6f}, "
+                   f"likeliest state {likeliest} at {energy:.6f})", seconds, evals, card, counts)
+        say(f"  exchanges {exchange_line()}")
+        need = (("shard_pair_combine", "shard_group_product", "shard_diag_phase")
+                if route == "fold" else ("population_states", "shard_pair_combine"))
+        for kernel in need:
+            require(counts[kernel] > 0, f"config 8 ({route}) did not launch {kernel}")
+        scale = float(table8.abs().max())
+        gap = abs(float(table8[likeliest]) - energy)
+        require(gap <= 1e-5 * scale, f"config 8's likeliest state has table energy "
+                                     f"{float(table8[likeliest])} against {energy} on the host")
+        require(result.eigenvalue >= float(table8.min()) - 1e-5 * scale,
+                "config 8's eigenvalue lies below the table's minimum")
+        if route == "fold":
+            launches = {k: counts[k] for k in SHARD_KERNELS if k != "shard_running_sum"}
+        cut = CONFIG8["cut"]
+        reset_launch_counts()
+        start = time.perf_counter()
+        other = config8_solver(four, cut, amp_devices=2).compute_minimum_eigenvalue(hamiltonian8)
+        cut_seconds = time.perf_counter() - start
+        full = trajectory(result)
+        part = trajectory(other)
+        require(part["energies"] == full["energies"][:cut],
+                f"config 8 ({route}) on 2x2 differs from 1x4")
+        say(f"  check: 2x2 ({cut_seconds:.3f} s) gives 1x4's first {cut} generation(s) bit for "
+            f"bit; reduced: the 2x2 run's {CONFIG8['generations']} generations cut to {cut}")
+    use_shard_route("fold")
+    return launches
+
+
+def config7_solver(mesh):
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.solver import (
+        ConfiguredSampler,
+        EVQEMinimumEigensolver,
+        EVQEMinimumEigensolverConfiguration,
+    )
+
+    cfg = CONFIG7
+    return EVQEMinimumEigensolver(EVQEMinimumEigensolverConfiguration(
+        configured_estimator=None,
+        configured_sampler=ConfiguredSampler(shots=cfg["shots"], seed=cfg["sampler_seed"]),
+        optimizer=BatchedNFT(NFTConfig(maxiter=cfg["maxiter"])),
+        optimizer_n_circuit_evaluations=None, max_generations=cfg["generations"],
+        max_circuit_evaluations=None, termination_criterion=None, random_seed=cfg["seed"],
+        population_size=cfg["population"], speciation_genetic_distance_threshold=2,
+        selection_alpha_penalty=0.1, selection_beta_penalty=0.1,
+        parameter_search_probability=0.25, topological_search_probability=0.4,
+        layer_removal_probability=0.05, use_tournament_selection=True,
+        tournament_size=cfg["tournament_size"], distribution_alpha_tail=cfg["alpha"],
+        pack_min_layers=cfg["pack_min_layers"], device=DEVICE, mesh=mesh,
+        shard_amplitudes=True,
+    ))
+
+
+def phase_amp_shots(card):
+    """Phase 33: config 7 (shots, CVaR) on 2 blocks; exact CVaR bit-equal on
+    1, 2, 4 blocks; TFIM-20 grouped shots bit-equal on 2 and 4 blocks;
+    TFIM-20 general exact energies against the unsharded term scan."""
+    import numpy as np
+
+    from queasars_tpu_torch.genome import EVQEPopulation, PackedPopulation
+    from queasars_tpu_torch.parallel import population_mesh
+    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+    from queasars_tpu_torch.sim.sharded_evaluator import AmplitudeShardedExpectationEvaluator
+
+    _, _, hamiltonian7 = jssp_with_qubits(3, 3, CONFIG7["makespan"], CONFIG7["qubits"],
+                                          {1: 0.5, 2: 0.5}, rel=1.0)
+    reset_memory()
+    result, seconds, counts = timed_solve(
+        config7_solver(population_mesh(devices=[f"{DEVICE}:0"] * 2)), hamiltonian7)
+    evals = int(sum(result.circuit_evaluations))
+    phase_line(f"config 7 ({hamiltonian7.n_qubits} qubits, 512 shots, CVaR 0.5, 1x2, fold "
+               f"route, {result.generations} generation, eigenvalue {result.eigenvalue:.6f})",
+               seconds, evals, card, counts)
+    require(counts["shard_running_sum"] > 0, "config 7 did not launch shard_running_sum")
+    require(sum(result.eigenstate.values()) > 0.999, "config 7's distribution is empty")
+    say("  reduced: config 7's 3 generations cut to 1")
+    n = hamiltonian7.n_qubits
+    population = EVQEPopulation.random_population(n, 6, 16, True, random_seed=7)
+    packed = PackedPopulation.pack(list(population.individuals), min_layers=6)
+    cvar = {}
+    for blocks in (1, 2, 4):
+        evaluator = AmplitudeShardedExpectationEvaluator(hamiltonian7, card_amp_mesh(1, blocks),
+                                                         alpha=CONFIG7["alpha"])
+        start = time.perf_counter()
+        cvar[blocks] = evaluator.evaluate_packed(packed)
+        say(f"  exact CVaR 0.5 (n={n}, P=16, 1x{blocks}): "
+            f"{time.perf_counter() - start:.3f} s, mean {float(cvar[blocks].mean()):.6f}")
+    require(all(np.array_equal(cvar[1], cvar[b]) for b in (2, 4)),
+            "exact CVaR differs across 1, 2 and 4 blocks")
+    operator = tfim20()
+    population = EVQEPopulation.random_population(operator.n_qubits, 4, 16, True,
+                                                  random_seed=8)
+    packed = PackedPopulation.pack(list(population.individuals), min_layers=4)
+    grouped = {}
+    for blocks in (2, 4):
+        evaluator = AmplitudeShardedExpectationEvaluator(operator, card_amp_mesh(1, blocks),
+                                                         shots=512, seed=0)
+        start = time.perf_counter()
+        grouped[blocks] = evaluator.evaluate_packed(packed)
+        say(f"  TFIM-20 grouped shots (512 per group, 1x{blocks}): "
+            f"{time.perf_counter() - start:.3f} s")
+    require(np.array_equal(grouped[2], grouped[4]), "grouped shots differ on 2 and 4 blocks")
+    exact = AmplitudeShardedExpectationEvaluator(operator, card_amp_mesh(1, 4))
+    start = time.perf_counter()
+    got = exact.evaluate_packed(packed)
+    sharded_s = time.perf_counter() - start
+    want = StatevectorExpectationEvaluator(operator, device=DEVICE).evaluate_packed(packed)
+    gap = float(np.abs(got - want).max())
+    require(gap <= 1e-5 * float(np.abs(operator.coeffs).sum()),
+            f"general sharded energies are {gap:.3e} from the term scan")
+    say(f"  check: exact CVaR bit-equal on 1, 2, 4 blocks; grouped shots bit-equal on 2 and 4; "
+        f"general exact energies (1x4, {sharded_s:.3f} s) {gap:.3e} from the unsharded term scan "
+        f"| {card}")
+    return {"shard_running_sum": counts["shard_running_sum"]}
+
+
+AMP_MULTIHOST_WORKER = """
+import sys
+import chip_smoke
+sys.exit(chip_smoke.amp_multihost_worker(sys.argv[1], int(sys.argv[2])))
+"""
+
+
+def amp_multihost_work(mesh):
+    """Phase 34's two-process work: exact energies and a last-layer NFT
+    sweep of config 8's operator over ``mesh`` (JSON-able)."""
+    import numpy as np
+
+    from queasars_tpu_torch.genome import EVQEPopulation, PackedPopulation
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.sim.sharded_evaluator import AmplitudeShardedExpectationEvaluator
+
+    cfg = AMP_MULTIHOST
+    _, _, hamiltonian = jssp_with_qubits(3, 3, CONFIG8["makespan"], CONFIG8["qubits"],
+                                         {1: 0.5, 2: 0.5})
+    n = hamiltonian.n_qubits
+    population = EVQEPopulation.random_population(n, cfg["layers"], cfg["population"], True,
+                                                  random_seed=cfg["seed"])
+    packed = PackedPopulation.pack(list(population.individuals), min_layers=cfg["layers"])
+    evaluator = AmplitudeShardedExpectationEvaluator(hamiltonian, mesh)
+    start = time.perf_counter()
+    energies = evaluator.evaluate_packed(packed)
+    energies_s = time.perf_counter() - start
+    last = packed.layer_mask.sum(axis=1).astype(np.int64) - 1
+    rows = [packed.param_coordinates(i) for i in range(packed.n_individuals)]
+    rows = [c[c[:, 0] == last[i]] for i, c in enumerate(rows)]
+    width = max(len(c) for c in rows)
+    coords = np.stack([np.pad(c, ((0, width - len(c)), (0, 0))) for c in rows])
+    n_free = np.asarray([len(c) for c in rows], np.int32)
+    start = time.perf_counter()
+    angles, swept, _ = BatchedNFT(NFTConfig(maxiter=cfg["maxiter"])).minimize(
+        evaluator, packed, coords, n_free, np.ones(len(rows), bool), last_layer=last)
+    return {"energies": [float(v) for v in energies], "swept": [float(v) for v in swept],
+            "angles": np.asarray(angles).ravel().tolist(), "energies_s": energies_s,
+            "sweep_s": time.perf_counter() - start}
+
+
+def amp_multihost_worker(address: str, rank: int) -> int:
+    import torch
+
+    from queasars_tpu_torch.parallel import initialize_multihost
+    from queasars_tpu_torch.parallel.amplitude import amplitude_mesh, exchange_bytes
+
+    initialize_multihost(coordinator_address=address, num_processes=2, process_id=rank)
+    try:
+        out = amp_multihost_work(amplitude_mesh(devices=[f"{DEVICE}:0"]))
+        out["sent_mib"] = exchange_bytes["sent"] / 2**20
+        print("RESULT" + json.dumps(out), flush=True)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_amp_qaoa_cli_processes(card, hamiltonian4, hamiltonian8, instance8):
+    """Phase 34: sharded QAOA energies and gradients on config 4's table on
+    2 and 4 blocks (bit-equal, within tolerance of the unsharded QAOA) and a
+    cut sharded QAOA solve; ``--shard-amplitudes`` through the CLI in
+    process on config 8 (1 generation) against the in-process 1x4 solve;
+    two gloo processes, one shard each on the card, against one process
+    with 2 blocks."""
+    import os
+    import socket
+
+    import numpy as np
+    import torch
+
+    from queasars_tpu_torch.__main__ import main as cli_main
+    from queasars_tpu_torch.parallel import population_mesh
+    from queasars_tpu_torch.parallel.amplitude import amplitude_mesh
+    from queasars_tpu_torch.paulis.diagonal import diagonal_energy_table_device, diagonal_terms
+    from queasars_tpu_torch.sim.qaoa import qaoa_energies_batch, sharded_qaoa_energies
+    from queasars_tpu_torch.sim.sharded_statevector import build_device_table
+    from queasars_tpu_torch.solver.qaoa import (
+        QAOAConfiguration,
+        QAOAMinimumEigensolver,
+        start_schedules,
+    )
+    from queasars_tpu_torch.utils import batch_invariant
+
+    n = hamiltonian4.n_qubits
+    cfg = AMP_QAOA
+    coeffs, masks = diagonal_terms(hamiltonian4)
+    table = diagonal_energy_table_device(hamiltonian4, device=DEVICE)
+    scale = torch.clamp(table.abs().max(), min=1e-6)
+    gammas, betas, _ = start_schedules(0, cfg["starts"], cfg["reps"], scale)
+    params0 = torch.cat([gammas, betas], dim=1)
+    runs = {}
+    for blocks in (2, 4):
+        mesh = card_amp_mesh(1, blocks)
+        row = mesh.row(0, n)
+        tables = build_device_table(mesh, coeffs, masks, n).of(row)
+        leaf = params0.clone().requires_grad_(True)
+        start = time.perf_counter()
+        with batch_invariant.scope():
+            energies = sharded_qaoa_energies(row, tables, leaf[:, :cfg["reps"]],
+                                             leaf[:, cfg["reps"]:])
+            (grad,) = torch.autograd.grad(energies.sum(), leaf)
+        torch.cuda.synchronize()
+        runs[blocks] = (energies.detach().cpu().numpy(), grad.cpu().numpy(),
+                        time.perf_counter() - start)
+    require(np.array_equal(runs[2][0], runs[4][0]) and np.array_equal(runs[2][1], runs[4][1]),
+            "sharded QAOA energies or gradients differ on 2 and 4 blocks")
+    leaf = params0.clone().requires_grad_(True)
+    plain = qaoa_energies_batch(table, leaf[:, :cfg["reps"]], leaf[:, cfg["reps"]:], n)
+    (plain_grad,) = torch.autograd.grad(plain.sum(), leaf)
+    e_gap = float(np.abs(plain.detach().cpu().numpy() - runs[4][0]).max())
+    g_gap = float(np.abs(plain_grad.cpu().numpy() - runs[4][1]).max())
+    g_scale = float(np.abs(runs[4][1]).max())
+    require(e_gap <= 1e-5 * float(scale), f"sharded QAOA energies {e_gap:.3e} from unsharded")
+    require(g_gap <= 1e-4 * g_scale, f"sharded QAOA gradients {g_gap:.3e} from unsharded")
+    say(f"phase sharded QAOA (config 4's table, n={n}, {cfg['starts']} starts, p={cfg['reps']}): "
+        f"energies + gradient {runs[2][2]:.3f} s on 2 blocks, {runs[4][2]:.3f} s on 4, bit-equal; "
+        f"{e_gap:.3e} / {g_gap:.3e} from the unsharded QAOA | {card}")
+    reset_memory()
+    reset_launch_counts()
+    start = time.perf_counter()
+    solved = QAOAMinimumEigensolver(QAOAConfiguration(
+        n_starts=cfg["starts"], reps=cfg["reps"], maxiter=cfg["maxiter"], device=DEVICE,
+        mesh=card_amp_mesh(1, 4))).compute_minimum_eigenvalue(hamiltonian4)
+    seconds = time.perf_counter() - start
+    require(abs(solved.best_bitstring_energy - host_energy(hamiltonian4, solved.best_bitstring))
+            < 1e-9, "QAOA's best bitstring energy is not the Hamiltonian's")
+    require(solved.eigenvalue <= max(solved.start_energies) + 1e-6, "QAOA rose")
+    phase_line(f"sharded QAOA solve (1x4, Adam maxiter {cfg['maxiter']}, eigenvalue "
+               f"{solved.eigenvalue:.6f}, best bitstring {solved.best_bitstring} at "
+               f"{solved.best_bitstring_energy:.6f})", seconds, solved.circuit_evaluations,
+               card, launch_counts())
+    say(f"  reduced: QAOAConfiguration's maxiter 150 cut to {cfg['maxiter']}")
+
+    args = ["solve", "--jssp", instance8, "--makespan-limit", str(CONFIG8["makespan"]),
+            "--population", str(CONFIG8["population"]), "--nft-maxiter",
+            str(CONFIG8["maxiter"]), "--seed", str(CONFIG8["seed"]), "--generations", "1",
+            "--n-devices", "1", "--shard-amplitudes", "--device", DEVICE]
+    import contextlib
+    import io
+
+    buffer = io.StringIO()
+    reset_launch_counts()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(buffer):
+        require(cli_main(args) == 0, "the --shard-amplitudes CLI run failed")
+    cli_s = time.perf_counter() - start
+    cli_counts = launch_counts()
+    summary = json.loads(buffer.getvalue().strip().splitlines()[-1])
+    result, local_s, counts = timed_solve(
+        cli_solver(population_mesh(devices=[f"{DEVICE}:0"] * 4), generations=1,
+                   shard_amplitudes=True, settings=dict(CLI4, population=CONFIG8["population"],
+                                                        nft_maxiter=CONFIG8["maxiter"],
+                                                        seed=CONFIG8["seed"])),
+        hamiltonian8)
+    ours = {"best_per_generation": [g.best_expectation_value
+                                    for g in result.population_evaluation_results],
+            "eigenvalue": result.eigenvalue, "circuit_evaluations": result.circuit_evaluations}
+    for key, value in ours.items():
+        require(summary[key] == value, f"the CLI's {key} {summary[key]} differs from the 1x4 "
+                                       f"solve's {value}")
+    say(f"phase CLI --shard-amplitudes --n-devices 1 (config 8, 1 generation): {cli_s:.3f} s, "
+        f"eigenvalue {summary['eigenvalue']:.6f} | {card} | launches per row "
+        f"{per_row(cli_counts)}; the 1x4 solve in process {local_s:.3f} s, launches per row "
+        f"{per_row(counts)}; equal summaries")
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": root}
+    start = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", AMP_MULTIHOST_WORKER, f"localhost:{port}",
+                               str(rank)], cwd=root, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for rank in range(2)]
+    outputs = []
+    try:
+        for proc in procs:
+            outputs.append(proc.communicate(timeout=WORKER_TIMEOUT_S))
+    except subprocess.TimeoutExpired:
+        raise Failure("a process of the two-process amplitude phase timed out")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    seconds = time.perf_counter() - start
+    payloads = {}
+    for rank, (proc, (out, err)) in enumerate(zip(procs, outputs)):
+        require(proc.returncode == 0, f"rank {rank} exited {proc.returncode}: {err[-1500:]}")
+        for line in out.splitlines():
+            if line.startswith("RESULT"):
+                payloads[rank] = json.loads(line[len("RESULT"):])
+    require(set(payloads) == {0, 1}, "a rank printed no result")
+    local = amp_multihost_work(amplitude_mesh(devices=[f"{DEVICE}:0"] * 2))
+    for rank in (0, 1):
+        p = payloads[rank]
+        for key in ("energies", "swept", "angles"):
+            require(p[key] == local[key], f"rank {rank}'s {key} differ from one process")
+        say(f"phase two processes, one shard each (gloo, rank {rank}, config 8's operator, "
+            f"P={AMP_MULTIHOST['population']}): energies {p['energies_s']:.3f} s, last-layer "
+            f"NFT sweep ({AMP_MULTIHOST['maxiter']} steps) {p['sweep_s']:.3f} s, "
+            f"{p['sent_mib']:.1f} MiB sent through gloo | {card}")
+    say(f"  check: both ranks equal one process with 2 blocks (energies {local['energies_s']:.3f} "
+        f"s, sweep {local['sweep_s']:.3f} s) bit for bit ({seconds:.1f} s with both processes' "
+        f"start)")
 
 
 def main() -> int:
@@ -3260,16 +3899,26 @@ def main() -> int:
         phase_mesh_solves(card, hamiltonian, hamiltonian3)
         phase_multihost(card, hamiltonian)
         phase_mesh_adapt_and_cli(card, hamiltonian, instance_path, encoder.makespan_limit)
+        _, encoder8, hamiltonian8 = jssp_with_qubits(3, 3, CONFIG8["makespan"],
+                                                     CONFIG8["qubits"], {1: 0.5, 2: 0.5})
+        require(hamiltonian8.n_qubits == CONFIG8["qubits"], "the instance is not 22 qubits")
+        table8 = diagonal_energy_table(hamiltonian8, dtype=torch.float32, device=DEVICE)
+        records.update(phase_amp_primitives(card, hamiltonian8))
+        launches.update(phase_config8(card, hamiltonian8, table8))
+        launches.update(phase_amp_shots(card))
+        instance8 = write_instance(encoder8, f"{work_dir('cli')}/instance8.json")
+        phase_amp_qaoa_cli_processes(card, hamiltonian, hamiltonian8, instance8)
     except Failure as failure:
         say(f"FAILED: {failure}")
         return 1
 
     kernels = [
         {
-            "name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
+            "name": k, "route": "cuda", "source": {**KERNELS, **SHARD_KERNELS}[k][0],
+            "replaces": {**KERNELS, **SHARD_KERNELS}[k][1],
             "launches": launches[k], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound"][0],
-            "bound_by": rec["bound"][1], "library_ms": None,
+            "bound_by": rec["bound"][1], "library_ms": rec.get("library_ms"),
         }
         for k, rec in records.items()
     ]

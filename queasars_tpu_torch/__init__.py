@@ -14,8 +14,9 @@ ADAPT-VQE and QAOA; the JSSP, spin-chain and QUBO-family problem encoders;
 external evaluation backends and black-box bitstring objectives; the JSON
 and OpenQASM codecs, full-state checkpoint and resume, profiling, plots and
 the command line (``python -m queasars_tpu_torch solve``); the population
-mesh and its multi-process runtime (``parallel``).  ROADMAP.md lists what
-follows (amplitude sharding).
+mesh and its multi-process runtime (``parallel``); amplitude sharding, one
+statevector split over a (pop, amp) mesh (``sim/sharded_evaluator.py``),
+for EVQE, MoG-VQE, QNEAT, QAOA and the command line.
 """
 
 __version__ = "0.1.0"

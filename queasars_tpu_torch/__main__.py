@@ -5,9 +5,9 @@ line, except two: ``--device`` replaces ``--platform`` (the card by
 default, ``cpu`` for the kernels' plain versions), and there is no
 ``--use-pallas``, because on the card the port always runs its CUDA
 kernels.  ``--n-devices N`` splits an EVQE solve's population over
-``population_mesh(N)`` (with ``--device cpu``, over N CPU blocks);
-``--shard-amplitudes`` exits with a message: amplitude sharding is not
-ported yet.
+``population_mesh(N)`` (with ``--device cpu``, over N CPU blocks), and
+``--shard-amplitudes`` splits each state over that mesh's amplitude axis
+(``sim/sharded_evaluator.py``), as in the reference.
 
 Load a JSSP instance (JSON, the wire-compatible codec) or a QUBO (.npy
 matrix / JSON), run EVQE or QNEAT with checkpointing, and write the full
@@ -62,7 +62,7 @@ def _build_parser() -> argparse.ArgumentParser:
     )
     solve.add_argument(
         "--shard-amplitudes", action="store_true",
-        help="amplitude sharding (not ported yet: exits with a message)",
+        help="amplitude sharding (split each state over the --n-devices mesh)",
     )
     solve.add_argument("--checkpoint", default=None, help="solver-state checkpoint path")
     solve.add_argument("--resume", action="store_true", help="resume from --checkpoint")
@@ -134,9 +134,6 @@ def _solve(args) -> int:
         raise SystemExit("--resume requires --checkpoint")
     if args.algorithm == "qneat" and (args.shard_amplitudes or args.n_devices):
         raise SystemExit("mesh options are EVQE-only in the CLI for now")
-    if args.shard_amplitudes:
-        raise SystemExit("--shard-amplitudes needs amplitude sharding, which the port "
-                         "does not have yet")
     hamiltonian, describe = _load_hamiltonian(args)
     if args.algorithm == "qneat":
         from queasars_tpu_torch.solver import (
@@ -182,6 +179,7 @@ def _solve(args) -> int:
         distribution_alpha_tail=args.alpha_tail,
         pack_min_layers=args.pack_min_layers,
         n_devices=args.n_devices,
+        shard_amplitudes=True if args.shard_amplitudes else None,
         checkpoint_path=args.checkpoint,
         resume_from_checkpoint=args.checkpoint if args.resume else None,
         device=args.device,

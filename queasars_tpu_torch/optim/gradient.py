@@ -369,6 +369,8 @@ class BatchedGradientDescent:
         objective and where ``cache_prefix`` resolves off (the per-slot
         loop then runs :meth:`minimize`); ``seeds`` are accepted for the
         contract."""
+        if getattr(evaluator, "nft_minimize", None) is not None:
+            return None  # an amplitude-sharded evaluator: the per-slot loop
         operands = _operands(evaluator, strict=False)
         cfg = self.config
         if operands is None or not cache_enabled(cfg.cache_prefix, operands):

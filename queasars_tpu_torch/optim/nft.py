@@ -43,6 +43,11 @@ reference's host-stepped numpy loop (:meth:`BatchedNFT._minimize_host`),
 one ``evaluate_packed`` call per probe; ``minimize_slots`` returns None for
 it, so the per-slot loop calls :meth:`BatchedNFT.minimize` slot by slot.
 
+An evaluator that owns its distribution, the amplitude-sharded one
+(``sim/sharded_evaluator.py``), runs the searches itself: ``minimize`` and
+``minimize_slots`` hand it the call (``nft_minimize`` / ``nft_minimize_slots``)
+and take the host-stepped loop only where it returns None.
+
 Under a population mesh (the evaluator's ``mesh``, ``parallel/mesh.py``)
 both searches run block by block on the mesh's devices, as the reference's
 dispatch sites do (``minimize``'s full-circuit steps, for the prefix cache
@@ -242,6 +247,13 @@ class BatchedNFT:
         reuse them (PopulationEnergyCache)."""
         if self.config.five_point:
             return False
+        if getattr(evaluator, "nft_minimize", None) is not None:
+            # an amplitude-sharded evaluator's sweep is the same 3-point
+            # math, exact on its plain diagonal energies
+            return (
+                evaluator.alpha >= 1.0 and evaluator.shots is None
+                and evaluator.operator.is_diagonal
+            )
         try:
             operands = objective_operands(evaluator)
         except TypeError:
@@ -284,6 +296,14 @@ class BatchedNFT:
         a = packed.angles if angles is None else angles
         if coords.shape[1] == 0 or not np.any(np.logical_and(active, n_free > 0)):
             return np.asarray(a), np.asarray(evaluator.evaluate_packed(packed, angles=a)), 0
+        # an evaluator that owns its distribution (amplitude sharding) runs
+        # the sweep itself; None: not for this configuration
+        device_nft = getattr(evaluator, "nft_minimize", None)
+        if device_nft is not None:
+            result = device_nft(packed, coords, n_free, active, a, self.config, seed,
+                                last_layer=last_layer)
+            if result is not None:
+                return (*result, self.config.n_circuit_evaluations())
         try:
             operands = objective_operands(evaluator)
         except TypeError:
@@ -422,6 +442,16 @@ class BatchedNFT:
         :return: (optimized angles, last-slot energies, evaluations used
             per active individual per slot)
         """
+        device_slots = getattr(evaluator, "nft_minimize_slots", None)
+        if device_slots is not None:
+            seed0 = int(seeds[0]) if seeds is not None and len(seeds) else 0
+            result = device_slots(
+                packed, coords, n_free, active, slot_layers,
+                np.asarray(packed.angles if angles is None else angles), self.config, seed0,
+            )
+            if result is None:
+                return None
+            return (*result, self.config.n_circuit_evaluations())
         try:
             operands = objective_operands(evaluator)
         except TypeError:

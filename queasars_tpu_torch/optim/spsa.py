@@ -449,6 +449,8 @@ class BatchedSPSA:
         ``split(PRNGKey(seeds[s]), P)``.  Returns None for an unsupported
         evaluator and where ``cache_prefix`` resolves off.
         """
+        if getattr(evaluator, "nft_minimize", None) is not None:
+            return None  # an amplitude-sharded evaluator: the per-slot loop
         try:
             operands = objective_operands(evaluator)
         except TypeError:

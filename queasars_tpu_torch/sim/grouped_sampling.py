@@ -106,6 +106,40 @@ def grouped_operands(operator, device="cpu") -> GroupedOperands:
     )
 
 
+def grouped_shard_operands(operator):
+    """Host operands of the amplitude-sharded grouped sampler
+    (``sim/sharded_evaluator.py``): the groups' rotation layers and their
+    terms padded to one length, for the shard-local table build
+    (``sharded_statevector.build_device_tables_batch``); no 2^n table is
+    made on the host.
+
+    :return: ``(rot_types [G, n] int32, rot_angles [G, n, 3] float32,
+        coeffs [G, K] float32, z_masks [G, K] uint32, const float)``, ``K``
+        the largest group's term count, zero coefficients inert padding
+    """
+    from queasars_tpu_torch.paulis.grouping import measurement_rotation_layer, qwc_groups
+
+    n = operator.n_qubits
+    if n > 32:
+        raise NotImplementedError("sharded grouped sampling limited to n<=32 qubits")
+    const, groups = qwc_groups(operator)
+    if not groups:
+        raise ValueError(
+            "the operator has no non-identity terms -- nothing to measure "
+            "(its expectation is the identity constant)"
+        )
+    layers = [measurement_rotation_layer(g, n) for g in groups]
+    k_max = max(g.diagonal.n_terms for g in groups)
+    coeffs = np.zeros((len(groups), k_max), np.float32)
+    masks = np.zeros((len(groups), k_max), np.uint32)
+    for i, g in enumerate(groups):
+        k_g = g.diagonal.n_terms
+        coeffs[i, :k_g] = g.diagonal.coeffs.real.astype(np.float32)
+        masks[i, :k_g] = g.diagonal.z[:, 0].astype(np.uint32)
+    return (np.stack([t for t, _ in layers]).astype(np.int32),
+            np.stack([a for _, a in layers]).astype(np.float32), coeffs, masks, float(const))
+
+
 def grouped_weights(operator) -> np.ndarray:
     """Per-group coefficient L1 norms ``w_g = sum_k |c_k|`` (the shot
     allocation weights of :func:`allocate_shots`), in group order."""

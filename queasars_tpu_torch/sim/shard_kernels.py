@@ -1,0 +1,256 @@
+"""The amplitude-shard kernels: CUDA on the card, plain PyTorch on the CPU.
+
+The JAX package runs its amplitude-sharded engine
+(``queasars_tpu/sim/sharded_statevector.py``, ``sharded_fold.py``) as XLA
+code under ``shard_map``; it has no Pallas kernel.  These four wrappers are
+the port's kernels for the engine's per-shard passes
+(``csrc/shard_kernels.cu``; its header gives each one's design and bound):
+
+================================  ==========================================
+wrapper                           pass (queasars_tpu/sim/...)
+================================  ==========================================
+:func:`pair_combine`              one slot or fold factor on one target,
+                                  partner in the shard or exchanged
+                                  (``sharded_statevector.py:87-139``,
+                                  ``sharded_fold.py:144-163``)
+:func:`group_product`             a dense 2^m x 2^m group matrix on m qubits
+                                  (``sharded_fold.py:105-142``)
+:func:`diag_phase`                a kron layer's controlled phases
+                                  (``sharded_fold.py:167-202``)
+:func:`running_sum`               the blocked sampler's block CDFs and
+                                  offsets (``sharded_statevector.py:238-240``)
+================================  ==========================================
+
+A shard batch is [B, 2, 2^local_bits] (re, im planes per row).  Each
+wrapper takes its plain version (``*_plain``, beside it) only because the
+tensors it was given lie on the CPU; on CUDA tensors it launches the kernel
+or raises.  The kernels round every product and sum on its own, in the
+plain versions' order, so kernel and plain version agree bit for bit, and
+an amplitude's value never depends on the shard's length -- the engine's
+promise of equal bits across (pop, amp) factorizations.  ``launch_counts``
+counts launches, one per wrapper call that launched.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from queasars_tpu_torch.sim.sampling import running_sum as running_sum_plain
+from queasars_tpu_torch.sim.slot_kernels import _expect, _library, _on_cuda, _ptr, _stream
+
+launch_counts: dict[str, int] = {
+    "shard_pair_combine": 0,
+    "shard_group_product": 0,
+    "shard_diag_phase": 0,
+    "shard_running_sum": 0,
+}
+
+#: the running-sum kernel's longest segment (its shared-memory levels)
+RUNNING_SUM_MAX = 4096
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _shard_shape(state: torch.Tensor, local_bits: int) -> int:
+    rows = state.shape[0]
+    _expect(state, "state", torch.float32, (rows, 2, 1 << local_bits))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# pair_combine
+# ---------------------------------------------------------------------------
+
+
+def pair_combine_plain(state, partner, entries, ctrl_bit, enabled, local_bits, target, side):
+    """Plain version of :func:`pair_combine`: ``_partner_combine``'s
+    expression, ``a_re re - a_im im + b_re p_re - b_im p_im`` and ``a_re im +
+    a_im re + b_re p_im + b_im p_re`` evaluated left to right."""
+    rows, _, length = state.shape
+    idx = torch.arange(length, device=state.device)
+    re, im = state[:, 0], state[:, 1]
+    if target >= 0:
+        flipped = state.view(rows, 2, length >> (target + 1), 2, 1 << target).flip(3)
+        flipped = flipped.reshape(rows, 2, length)
+        p_re, p_im = flipped[:, 0], flipped[:, 1]
+        bit = ((idx >> target) & 1).bool()[None, :]
+    else:
+        p_re, p_im = partner[:, 0], partner[:, 1]
+        bit = torch.full((1, length), bool(side), device=state.device)
+
+    def entry(upper: int, lower: int) -> torch.Tensor:
+        return torch.where(bit, entries[:, lower, None], entries[:, upper, None])
+
+    a_re, a_im, b_re, b_im = entry(0, 6), entry(1, 7), entry(2, 4), entry(3, 5)
+    new_re = a_re * re - a_im * im + b_re * p_re - b_im * p_im
+    new_im = a_re * im + a_im * re + b_re * p_im + b_im * p_re
+    control = ctrl_bit.long()
+    ctrl_on = ((idx[None, :] >> control.clamp(min=0)[:, None]) & 1) == 1
+    active = enabled.bool()[:, None] & ((control < 0)[:, None] | ctrl_on)
+    return torch.stack([torch.where(active, new_re, re), torch.where(active, new_im, im)], dim=1)
+
+
+def pair_combine(state, partner, entries, ctrl_bit, enabled, local_bits: int, target: int,
+                 side: int = 0):
+    """One 2x2 on one target qubit of every shard row: [B, 2, 2^local_bits].
+
+    :param partner: the exchanged partner shard [B, 2, 2^local_bits] of a
+        global target (``target`` = -1, the row's side bit ``side``), or
+        None for a local target (the partner amplitude is ``i ^ 2^target``)
+    :param entries: [B, 8] float32: u00, u01, u10, u11 as (re, im) pairs
+    :param ctrl_bit: [B] int32, a local control bit (-1: none)
+    :param enabled: [B] bool; a row that is off is copied unchanged
+    """
+    tensors = (state, entries, ctrl_bit, enabled) + (() if partner is None else (partner,))
+    if not _on_cuda(*tensors):
+        return pair_combine_plain(state, partner, entries, ctrl_bit, enabled, local_bits,
+                                  target, side)
+    rows = _shard_shape(state, local_bits)
+    if (partner is None) != (target >= 0) or not -1 <= target < local_bits:
+        raise ValueError("a local target takes no partner, a global one (-1) needs one")
+    if partner is not None:
+        _expect(partner, "partner", torch.float32, tuple(state.shape))
+    _expect(entries, "entries", torch.float32, (rows, 8))
+    _expect(ctrl_bit, "ctrl_bit", torch.int32, (rows,))
+    _expect(enabled, "enabled", torch.bool, (rows,))
+    out = torch.empty_like(state)
+    lib = _library()
+    status = lib.load().qt_shard_pair_combine(
+        out.data_ptr(), state.data_ptr(), _ptr(partner), entries.data_ptr(),
+        ctrl_bit.data_ptr(), enabled.data_ptr(), rows, local_bits, target, int(side), _stream(),
+    )
+    lib.check(status, "qt_shard_pair_combine")
+    launch_counts["shard_pair_combine"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# group_product
+# ---------------------------------------------------------------------------
+
+
+def group_product_plain(state, ut, local_bits, q0, m):
+    """Plain version of :func:`group_product`: each output summed over the
+    group's inputs in index order in four real accumulators (re*re,
+    im*im, re*im, im*re), stacked so that each input is one product and
+    one sum."""
+    rows = state.shape[0]
+    d = 1 << m
+    x = state.reshape(rows, 2, (1 << local_bits) >> (q0 + m), d, 1 << q0)
+    # [4, rows, high, j, 1, low] against [4, rows, 1, j, k, 1]
+    xs = x[:, [0, 1, 0, 1]].transpose(0, 1)[:, :, :, :, None, :]
+    us = ut[:, [0, 1, 1, 0]].transpose(0, 1)[:, :, None, :, :, None]
+    acc = torch.zeros((4, rows, x.shape[2], d, x.shape[4]), dtype=state.dtype,
+                      device=state.device)
+    for j in range(d):
+        acc = acc + xs[:, :, :, j] * us[:, :, :, j]
+    rr, ii, ri, ir = acc
+    return torch.stack([rr - ii, ri + ir], dim=1).reshape(state.shape)
+
+
+def group_product(state, ut, local_bits: int, q0: int, m: int):
+    """A dense [2^m, 2^m] complex matrix on qubits [q0, q0 + m) of every
+    shard row, ``out[k] = sum_j U[k, j] x[j]`` over each group instance.
+
+    :param ut: [B, 2, 2^m, 2^m] float32, the rows' matrices transposed
+        (``ut[b, plane, j, k] = U_b[k, j]``), planes re and im
+    """
+    if not _on_cuda(state, ut):
+        return group_product_plain(state, ut, local_bits, q0, m)
+    rows = _shard_shape(state, local_bits)
+    if not (1 <= m <= 7 and 0 <= q0 and q0 + m <= local_bits):
+        raise ValueError("the group kernel takes 1 <= m <= 7 qubits inside the shard")
+    d = 1 << m
+    _expect(ut, "ut", torch.float32, (rows, 2, d, d))
+    out = torch.empty_like(state)
+    lib = _library()
+    status = lib.load().qt_shard_group_product(
+        out.data_ptr(), state.data_ptr(), ut.data_ptr(), rows, local_bits, q0, m, _stream(),
+    )
+    lib.check(status, "qt_shard_group_product")
+    launch_counts["shard_group_product"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# diag_phase
+# ---------------------------------------------------------------------------
+
+
+def _amp_bit(q, idx, local_bits: int, cell: int):
+    """[B, len] bit ``q`` [B] of each global amplitude index: the in-shard
+    index's for a local q, the cell id's for a global one."""
+    qc = q.long().clamp(min=0)
+    local = (idx[None, :] >> qc.clamp(max=local_bits - 1)[:, None]) & 1
+    cell_bit = (torch.full_like(qc, cell) >> (qc - local_bits).clamp(min=0)) & 1
+    return torch.where((qc < local_bits)[:, None], local, cell_bit[:, None])
+
+
+def diag_phase_plain(state, ctrl, tgt, phase, local_bits, cell):
+    """Plain version of :func:`diag_phase`."""
+    idx = torch.arange(state.shape[2], device=state.device)
+    re, im = state[:, 0], state[:, 1]
+    for j in range(ctrl.shape[1]):
+        active = (ctrl[:, j] >= 0)[:, None] & (_amp_bit(ctrl[:, j], idx, local_bits, cell) == 1)
+        tbit = _amp_bit(tgt[:, j], idx, local_bits, cell) == 1
+        p_re = torch.where(tbit, phase[:, j, 1, 0, None], phase[:, j, 0, 0, None])
+        p_im = torch.where(tbit, phase[:, j, 1, 1, None], phase[:, j, 0, 1, None])
+        new_re = p_re * re - p_im * im
+        new_im = p_re * im + p_im * re
+        re, im = torch.where(active, new_re, re), torch.where(active, new_im, im)
+    return torch.stack([re, im], dim=1)
+
+
+def diag_phase(state, ctrl, tgt, phase, local_bits: int, cell: int):
+    """One kron layer's controlled-diagonal phase slots on every shard row,
+    in slot order; on the card in place (the result is ``state``).
+
+    :param ctrl, tgt: [B, D] int32 qubits (control -1: unused slot)
+    :param phase: [B, D, 2, 2] float32, by the target's bit then (re, im)
+    :param cell: the shard's index on the amplitude axis (its global bits)
+    """
+    if not _on_cuda(state, ctrl, tgt, phase):
+        return diag_phase_plain(state, ctrl, tgt, phase, local_bits, cell)
+    rows = _shard_shape(state, local_bits)
+    slots = ctrl.shape[1]
+    _expect(ctrl, "ctrl", torch.int32, (rows, slots))
+    _expect(tgt, "tgt", torch.int32, (rows, slots))
+    _expect(phase, "phase", torch.float32, (rows, slots, 2, 2))
+    lib = _library()
+    status = lib.load().qt_shard_diag_phase(
+        state.data_ptr(), ctrl.data_ptr(), tgt.data_ptr(), phase.data_ptr(), rows, local_bits,
+        slots, int(cell), _stream(),
+    )
+    lib.check(status, "qt_shard_diag_phase")
+    launch_counts["shard_diag_phase"] += 1
+    return state
+
+
+# ---------------------------------------------------------------------------
+# running_sum
+# ---------------------------------------------------------------------------
+
+
+def running_sum(values, seg_len: int):
+    """Inclusive running sums of consecutive segments of ``seg_len`` values
+    along the last axis of ``values`` [..., S * seg_len], in XLA's CPU
+    order for a cumsum (``sim/sampling.py::running_sum``)."""
+    shape = values.shape
+    if not _on_cuda(values):
+        return running_sum_plain(values.reshape(-1, seg_len)).reshape(shape)
+    if not 1 <= seg_len <= RUNNING_SUM_MAX or seg_len & (seg_len - 1):
+        raise ValueError(f"segments must hold a power of two up to {RUNNING_SUM_MAX} values")
+    if values.dtype != torch.float32 or not values.is_contiguous():
+        raise ValueError("values must be contiguous float32")
+    segments = values.numel() // seg_len
+    out = torch.empty_like(values)
+    lib = _library()
+    status = lib.load().qt_shard_running_sum(
+        out.data_ptr(), values.data_ptr(), segments, seg_len, _stream(),
+    )
+    lib.check(status, "qt_shard_running_sum")
+    launch_counts["shard_running_sum"] += 1
+    return out

@@ -24,10 +24,13 @@ mesh (``mesh`` / ``n_devices``, ``parallel/mesh.py``) is attached to every
 evaluator the driver builds, so every population evaluation and search runs
 block by block over its devices (the reference's dask-executor seam,
 base/evolutionary_algorithm.py:110-118, selection.py:75-84); an injected
-evaluator keeps its own placement, as in the reference.  Not ported yet:
-amplitude sharding, which raises ``NotImplementedError`` wherever the
-reference would shard amplitudes (``shard_amplitudes=True``, or None with a
-mesh and more than 20 qubits).
+evaluator keeps its own placement, as in the reference.  Where the
+reference shards amplitudes (``shard_amplitudes=True`` with a mesh, or None
+with a mesh and more than 20 qubits), the operator and aux evaluators are
+``AmplitudeShardedExpectationEvaluator`` s on the mesh refactored into
+(pop, amp) (``sim/sharded_evaluator.py``): the amplitude axis the smallest
+power of two that keeps a shard at ``amp_local_qubits`` qubits (or
+``amp_devices``), the population the remaining factor.
 """
 
 from __future__ import annotations
@@ -111,10 +114,13 @@ class EvolvingAnsatzMinimumEigensolverConfiguration:
     :param n_devices: shorthand for ``mesh``: ``population_mesh(n_devices)``
         over the first cards, or ``n_devices`` CPU blocks when ``device`` is
         the CPU
-    :param shard_amplitudes / amp_devices / amp_local_qubits: the
-        reference's amplitude sharding (None / None / 20); not ported yet:
-        where the reference would shard amplitudes the solve raises
-        ``NotImplementedError``
+    :param shard_amplitudes: split each statevector over the mesh's
+        amplitude axis (``sim/sharded_evaluator.py``); None shards a mesh
+        solve above 20 qubits, True any mesh solve, False none
+    :param amp_devices: cells of the amplitude axis (None: the smallest
+        power of two keeping a shard at ``amp_local_qubits`` qubits)
+    :param amp_local_qubits: the largest shard, in qubits, the default
+        factorization allows (20)
     :param parameter_order: "canonical" or "qiskit" flat-parameter order
     :param reuse_selection_energies: selection reuses the exact final
         energies of the preceding last-layer search (None = on)
@@ -183,14 +189,29 @@ class EvolvingAnsatzMinimumEigensolver:
             return mesh_of(self.configuration.n_devices, self.configuration.device)
         return None
 
-    def _refuse_amplitude_sharding(self, mesh, n_qubits: int) -> None:
-        """Raise where the reference would shard amplitudes (its
-        ``amplitude_sharding_applies``): ``shard_amplitudes=True``, or None
-        with a mesh and more than 20 qubits."""
+    def amplitude_sharding_applies(self, mesh, n_qubits: int) -> bool:
+        """Whether a solve shards amplitudes: never without a mesh or with
+        ``shard_amplitudes=False``; by default above 20 qubits."""
         requested = self.configuration.shard_amplitudes
-        if requested is False or (requested is None and (mesh is None or n_qubits <= 20)):
-            return
-        raise NotImplementedError("amplitude sharding is not ported yet")
+        if requested is False or mesh is None:
+            return False
+        if requested is None:
+            return n_qubits > 20
+        return True
+
+    def resolve_amp_devices(self, mesh, n_qubits: int) -> int:
+        """The (pop, amp) factorization: ``amp_devices``, or the smallest
+        power-of-two amplitude axis that keeps each shard at
+        ``amp_local_qubits`` qubits or fewer; the population keeps the
+        remaining devices."""
+        if self.configuration.amp_devices is not None:
+            return self.configuration.amp_devices
+        total = mesh.size
+        amp = 1
+        while (amp < total and n_qubits - (amp.bit_length() - 1)
+               > self.configuration.amp_local_qubits):
+            amp *= 2
+        return amp
 
     def compute_minimum_eigenvalue(
         self,
@@ -218,7 +239,25 @@ class EvolvingAnsatzMinimumEigensolver:
 
         def build_evaluator(op: PauliSum) -> BaseCircuitEvaluator:
             config = self.configuration
-            self._refuse_amplitude_sharding(mesh, op.n_qubits)
+            if self.amplitude_sharding_applies(mesh, op.n_qubits):
+                from queasars_tpu_torch.sim.sharded_evaluator import (
+                    AmplitudeShardedExpectationEvaluator,
+                )
+
+                amp = self.resolve_amp_devices(mesh, op.n_qubits)
+                estimator = config.configured_estimator
+                if estimator is not None:
+                    return AmplitudeShardedExpectationEvaluator(
+                        operator=op, mesh=mesh, precision=estimator.precision or 0.0,
+                        seed=estimator.seed, initial_state=initial_state, amp_devices=amp,
+                    )
+                sampler = config.configured_sampler
+                return AmplitudeShardedExpectationEvaluator(
+                    operator=op, mesh=mesh, shots=sampler.shots,
+                    alpha=config.distribution_alpha_tail, seed=sampler.seed,
+                    initial_state=initial_state, amp_devices=amp,
+                    shot_allocation=sampler.shot_allocation,
+                )
             if config.configured_estimator is not None:
                 evaluator = StatevectorExpectationEvaluator(
                     operator=op, alpha=1.0, initial_state=initial_state,

@@ -75,11 +75,11 @@ class EVQEMinimumEigensolverConfiguration:
         cluster executor (evqe.py:232-236); trajectories are bit-identical
         across block counts.  ``n_devices`` builds ``population_mesh(
         n_devices)``, or ``n_devices`` CPU blocks when ``device`` is the CPU
-    :param shard_amplitudes / amp_devices / amp_local_qubits: the
-        reference's amplitude sharding knobs; not ported yet, so the solve
-        raises ``NotImplementedError`` where the reference would shard
-        amplitudes (``shard_amplitudes=True``, or None with a mesh and more
-        than 20 qubits)
+    :param shard_amplitudes / amp_devices / amp_local_qubits: amplitude
+        sharding over the mesh (the driver configuration's knobs): each
+        statevector split over a (pop, amp) factorization of the mesh,
+        ``shard_amplitudes=None`` doing so above 20 qubits; trajectories are
+        bit-identical across factorizations
     :param device: where the solve runs (None = the CUDA device)
     :param evaluator: a pluggable external evaluation backend -- a
         ``BaseCircuitEvaluator`` instance or a factory ``operator ->

@@ -14,8 +14,15 @@ the first into the gamma and beta keys, then float32 uniforms
 energy table is summed term by term in float32 as the reference's device
 table is (``paulis/diagonal.py::diagonal_energy_table_device``).  A final
 measurement with ``shots`` samples the best start's distribution with the
-measurement key (``sim/sampling.py``).  The reference's amplitude-sharded
-path (``mesh`` / ``n_devices``) is not ported yet and raises.
+measurement key (``sim/sampling.py``).
+
+With a ``mesh`` (any mesh, all its devices on the amplitude axis) or
+``n_devices`` > 1, the state is split over an amplitude mesh
+(``sim/qaoa.py``'s sharded part): the table is built shard by shard, Adam
+runs autograd through the shard exchanges, and the final measurement keeps
+every shard's top-k (exact) or the blocked sampler's draws (``shots``),
+decoded on the host from the term data; the 2^n state never leaves the
+shards, so ``optimal_state`` is None there, as in the reference.
 """
 
 from __future__ import annotations
@@ -29,10 +36,15 @@ import torch
 
 from queasars_tpu_torch.optim.gradient import Adam
 from queasars_tpu_torch.paulis import PauliSum
-from queasars_tpu_torch.paulis.diagonal import diagonal_energy_table_device
-from queasars_tpu_torch.sim.qaoa import qaoa_energies_batch, qaoa_state
+from queasars_tpu_torch.paulis.diagonal import diagonal_energy_table_device, diagonal_terms
+from queasars_tpu_torch.sim.qaoa import (
+    qaoa_energies_batch,
+    qaoa_state,
+    sharded_qaoa_energies,
+    sharded_qaoa_finalize,
+)
 from queasars_tpu_torch.sim.sampling import sample_indices
-from queasars_tpu_torch.utils import prng
+from queasars_tpu_torch.utils import batch_invariant, prng
 from queasars_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -51,8 +63,9 @@ class QAOAConfiguration:
         the lowest-energy sampled bitstring is reported; ``None`` keeps the
         exact distribution and reports the most probable bitstring
     :param seed: seeds the start schedules and the final measurement
-    :param mesh / n_devices: amplitude sharding, not ported yet (must be
-        None)
+    :param mesh / n_devices: amplitude sharding: a mesh whose devices all
+        go on the amplitude axis, or ``n_devices`` > 1 of them
+        (``amplitude_mesh``; CPU blocks when ``device`` is the CPU)
     :param eigenstate_top_k: the exact path reports this many
         highest-probability basis states
     :param device: where the solve runs (None = the CUDA device)
@@ -83,8 +96,6 @@ class QAOAConfiguration:
             raise ValueError("maxiter may not be negative!")
         if self.shots is not None and self.shots < 1:
             raise ValueError("shots, when given, must be positive!")
-        if self.mesh is not None or self.n_devices is not None:
-            raise NotImplementedError("amplitude-sharded QAOA is not ported yet")
 
 
 class QAOAResult:
@@ -123,17 +134,8 @@ def start_schedules(seed: int, n_starts: int, reps: int, scale: torch.Tensor):
     ``max(minval, u * (maxval - minval) + minval)``."""
     key_init, key_measure = prng.split(prng.PRNGKey(seed))
     key_g, key_b = prng.split(key_init)
-    device = scale.device
-
-    def uniform(key, minval: float, maxval: float) -> torch.Tensor:
-        lo, hi = np.float32(minval), np.float32(maxval)
-        u = prng.uniform(key, (n_starts, reps)).to(device)
-        span = torch.tensor(hi - lo, device=device)
-        lo_t = torch.tensor(lo, device=device)
-        return torch.maximum(lo_t, u * span + lo_t)
-
-    gammas0 = uniform(key_g, 0.0, 1.0) / scale
-    betas0 = uniform(key_b, 0.0, float(np.pi) / 2.0)
+    gammas0 = prng.uniform(key_g, (n_starts, reps)).to(scale.device) / scale
+    betas0 = prng.uniform(key_b, (n_starts, reps), maxval=float(np.pi) / 2.0).to(scale.device)
     return gammas0, betas0, key_measure
 
 
@@ -157,12 +159,33 @@ def multi_start_adam(energies_batch, gammas0, betas0, config: QAOAConfiguration)
     return params[:, :p], params[:, p:], energies
 
 
+def _host_state_energies(coeffs, z_masks, states) -> np.ndarray:
+    """Exact diagonal energies of a few basis states from the term data
+    (float64 on the host; no 2^n table)."""
+    states = np.asarray(states, dtype=np.uint64).reshape(-1, 1)
+    masks = np.asarray(z_masks, dtype=np.uint64).reshape(1, -1)
+    parity = (np.bitwise_count(states & masks) & 1).astype(np.float64)
+    return (1.0 - 2.0 * parity) @ np.asarray(coeffs, dtype=np.float64)
+
+
 class QAOAMinimumEigensolver:
     """Fixed-ansatz QAOA baseline over the problem encoders: any diagonal
     :class:`PauliSum`; a non-diagonal operator raises."""
 
     def __init__(self, configuration: QAOAConfiguration) -> None:
         self.configuration = configuration
+
+    def _resolve_mesh(self):
+        """The amplitude mesh (None: one device)."""
+        from queasars_tpu_torch.parallel.amplitude import as_amplitude_mesh
+        from queasars_tpu_torch.parallel.mesh import mesh_of
+
+        config = self.configuration
+        if config.mesh is not None:
+            return as_amplitude_mesh(config.mesh)
+        if config.n_devices is not None and config.n_devices > 1:
+            return as_amplitude_mesh(mesh_of(config.n_devices, config.device))
+        return None
 
     def compute_minimum_eigenvalue(self, operator: PauliSum) -> QAOAResult:
         config = self.configuration
@@ -171,6 +194,9 @@ class QAOAMinimumEigensolver:
                 "QAOA's cost layer requires a diagonal operator; use the VQE "
                 "solvers for Hamiltonians with X/Y terms."
             )
+        mesh = self._resolve_mesh()
+        if mesh is not None:
+            return self._solve_sharded(operator, mesh)
         n_qubits = operator.n_qubits
         device = resolve_device(config.device)
         p = config.reps
@@ -217,5 +243,63 @@ class QAOAMinimumEigensolver:
         logger.info(
             "QAOA p=%d: best of %d starts reached <H> = %.6f",
             config.reps, config.n_starts, result.eigenvalue,
+        )
+        return result
+
+    def _solve_sharded(self, operator: PauliSum, mesh) -> QAOAResult:
+        """The solve over an amplitude mesh (one process)."""
+        from queasars_tpu_torch.sim.sharded_statevector import build_device_table
+
+        config = self.configuration
+        n_qubits = operator.n_qubits
+        p = config.reps
+        row = mesh.row(0, n_qubits)
+        coeffs, z_masks = diagonal_terms(operator)
+        tables = build_device_table(mesh, coeffs, z_masks, n_qubits).of(row)
+
+        def energies_batch(params):
+            return sharded_qaoa_energies(row, tables, params[:, :p], params[:, p:])
+
+        scale = torch.stack([t.abs().max().to(row.home) for t in tables.values()]).max()
+        scale = torch.clamp(scale, min=1e-6)
+        gammas0, betas0, key_measure = start_schedules(config.seed, config.n_starts, p, scale)
+        with batch_invariant.scope():
+            gammas, betas, energies = multi_start_adam(energies_batch, gammas0, betas0, config)
+            with torch.no_grad():
+                top_i, top_p, samples = sharded_qaoa_finalize(
+                    row, tables, gammas[int(torch.argmin(energies))],
+                    betas[int(torch.argmin(energies))], key_measure,
+                    config.shots if config.shots is not None else 0,
+                    top_k=config.eigenstate_top_k,
+                )
+        energies_host = energies.detach().cpu().numpy()
+        best = int(np.argmin(energies_host))
+        top_i = top_i.cpu().numpy()
+        top_p = top_p.cpu().numpy().astype(np.float64)
+        if config.shots is not None:
+            samples = samples.cpu().numpy()
+            sampled = _host_state_energies(coeffs, z_masks, samples)
+            best_state = int(samples[int(np.argmin(sampled))])
+            unique, counts = np.unique(samples, return_counts=True)
+            distribution = {int(s): float(c) / config.shots for s, c in zip(unique, counts)}
+        else:
+            best_state = int(top_i[int(np.argmax(top_p))])
+            order = np.argsort(top_p)[::-1]
+            order = order[top_p[order] > 1e-9]
+            distribution = {int(top_i[i]): float(top_p[i]) for i in order}
+        result = QAOAResult()
+        result.best_bitstring_energy = float(
+            _host_state_energies(coeffs, z_masks, np.asarray([best_state]))[0])
+        result.optimal_state = None
+        result.eigenvalue = float(energies_host[best])
+        result.best_bitstring = best_state
+        result.optimal_gammas = tuple(float(g) for g in gammas[best].detach().cpu().numpy())
+        result.optimal_betas = tuple(float(b) for b in betas[best].detach().cpu().numpy())
+        result.eigenstate = distribution
+        result.start_energies = tuple(float(e) for e in energies_host)
+        result.circuit_evaluations = config.n_starts * (2 * config.maxiter + 1)
+        logger.info(
+            "QAOA p=%d over %d amplitude shards: best of %d starts reached <H> = %.6f",
+            config.reps, mesh.n_amp, config.n_starts, result.eigenvalue,
         )
         return result

@@ -23,8 +23,9 @@ generation tick, like the reference's EVQE selection):
 full solver state (a QNEAT population, operator RNGs, ledger, trajectory,
 evaluator randomness) exactly like the EVQE facade.  A population mesh
 (``mesh`` / ``n_devices``) splits every evaluation and polish over its
-devices, as in the EVQE facade; amplitude sharding (``shard_amplitudes`` /
-``amp_devices``) is not ported yet and raises ``NotImplementedError``.
+devices, as in the EVQE facade, and ``shard_amplitudes`` / ``amp_devices``
+split each statevector over a (pop, amp) factorization of it (EVQE facade
+semantics).
 """
 
 from __future__ import annotations
@@ -80,8 +81,8 @@ class QNEATMinimumEigensolverConfiguration:
     :param checkpoint_path / resume_from_checkpoint: full-state checkpoint
         write / resume (EVQE facade semantics)
     :param mesh / n_devices: population mesh (EVQE facade semantics)
-    :param shard_amplitudes / amp_devices: amplitude sharding, not ported
-        yet (must be None)
+    :param shard_amplitudes / amp_devices: amplitude sharding (EVQE facade
+        semantics)
     :param device: where the solve runs (None = the CUDA device)
     """
 
@@ -122,8 +123,6 @@ class QNEATMinimumEigensolverConfiguration:
             raise ValueError("QNEAT needs a population of at least 2")
         if not 0 < self.survival_fraction <= 1:
             raise ValueError("survival_fraction must be in (0, 1]")
-        if self.shard_amplitudes or self.amp_devices is not None:
-            raise NotImplementedError("amplitude sharding is not ported yet")
 
 
 class QNEATMinimumEigensolver(EvolvingAnsatzMinimumEigensolver):
@@ -191,6 +190,8 @@ class QNEATMinimumEigensolver(EvolvingAnsatzMinimumEigensolver):
             pack_min_layers=configuration.pack_min_layers,
             mesh=configuration.mesh,
             n_devices=configuration.n_devices,
+            shard_amplitudes=configuration.shard_amplitudes,
+            amp_devices=configuration.amp_devices,
             checkpoint_path=configuration.checkpoint_path,
             resume_from_checkpoint=configuration.resume_from_checkpoint,
             device=configuration.device,

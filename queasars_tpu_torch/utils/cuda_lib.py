@@ -1,5 +1,6 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``: the slot, the
-fold and the compacted-gate kernels, with the shared headers ``csrc/*.cuh``).
+fold, the compacted-gate and the amplitude-shard kernels, with the shared
+headers ``csrc/*.cuh``).
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 and one more ``nvcc`` call links the objects into a shared library with a
@@ -59,6 +60,10 @@ SIGNATURES = {
     "qt_grouped_shot_indices_folded": [_P] * 20 + [_I] * 5 + [_P],
     "qt_compact_energies_exact": [_P] * 9 + [_I] * 5 + [_P],
     "qt_compact_probs": [_P] * 7 + [_I] * 5 + [_P],
+    "qt_shard_pair_combine": [_P] * 6 + [_I] * 4 + [_P],
+    "qt_shard_group_product": [_P] * 3 + [_I] * 4 + [_P],
+    "qt_shard_diag_phase": [_P] * 4 + [_I] * 4 + [_P],
+    "qt_shard_running_sum": [_P] * 2 + [_I] * 2 + [_P],
 }
 
 

@@ -89,11 +89,21 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
-def uniform(key: torch.Tensor, shape) -> torch.Tensor:
-    """float32 uniforms in [0, 1) of ``shape`` per key [..., 2]: the top 23
-    bits of each 32-bit word as the mantissa of a float in [1, 2), minus 1
-    (``jax.random.uniform``'s scaling to [0, 1) leaves these values as
-    they are)."""
+def uniform(key: torch.Tensor, shape, minval=0.0, maxval=1.0) -> torch.Tensor:
+    """float32 uniforms in [minval, maxval) of ``shape`` per key [..., 2]:
+    the top 23 bits of each 32-bit word as the mantissa of a float in
+    [1, 2), minus 1, then ``jax.random.uniform``'s scaling and clamp,
+    ``max(minval, u * (maxval - minval) + minval)`` in float32 (it leaves
+    [0, 1) draws as they are).  ``minval`` / ``maxval`` may be tensors with
+    one value per key, which sets the result's device."""
     b0, b1 = _bits(key, tuple(shape))
     mantissa = ((b0 ^ b1) >> 9) | 0x3F800000
-    return mantissa.to(torch.int32).view(torch.float32) - 1.0
+    floats = mantissa.to(torch.int32).view(torch.float32) - 1.0
+    if not isinstance(minval, torch.Tensor) and not isinstance(maxval, torch.Tensor) \
+            and float(minval) == 0.0 and float(maxval) == 1.0:
+        return floats
+    bounds = [torch.as_tensor(v, dtype=torch.float32) for v in (minval, maxval)]
+    device = next((b.device for b in bounds if b.device.type != "cpu"), floats.device)
+    expand = (...,) + (None,) * len(tuple(shape))
+    lo, hi = (b.to(device)[expand] if b.dim() else b.to(device) for b in bounds)
+    return torch.maximum(lo, floats.to(device) * (hi - lo) + lo)

@@ -122,16 +122,20 @@ def test_cli_qneat_and_its_resume(inputs, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", [["--n-devices", "2"], ["--shard-amplitudes"]])
-def test_cli_refuses_the_mesh_flags(inputs, flag):
-    """Both mesh flags are EVQE-only, as in the JAX CLI; an EVQE solve
-    refuses ``--shard-amplitudes`` (amplitude sharding is not ported) and
-    runs ``--n-devices`` (:func:`test_cli_n_devices_splits_the_population`)."""
+def test_cli_refuses_the_mesh_flags(inputs, flag, capsys):
+    """Both mesh flags are EVQE-only, as in the JAX CLI.  An EVQE solve runs
+    ``--n-devices`` (:func:`test_cli_n_devices_splits_the_population`) and
+    ``--shard-amplitudes``: with ``--n-devices 2`` and ``1`` (amplitude
+    meshes factored 2x1 and 1x1) it prints the same summary bit for bit,
+    and without a mesh it solves unsharded, as the JAX CLI does."""
     with pytest.raises(SystemExit, match="EVQE-only"):
         main([*_jssp_args(inputs, "--generations", "1"), *flag, "--algorithm", "qneat",
               "--device", "cpu"])
     if flag == ["--shard-amplitudes"]:
-        with pytest.raises(SystemExit, match="amplitude sharding"):
-            main([*_jssp_args(inputs, "--generations", "1"), *flag, "--device", "cpu"])
+        args = [*_jssp_args(inputs, "--generations", "1"), *flag]
+        two = _port([*args, "--n-devices", "2"], capsys)
+        assert two == _port([*args, "--n-devices", "1"], capsys)
+        assert _port(args, capsys)["generations"] == 1
     with pytest.raises(SystemExit, match="requires --checkpoint"):
         main([*_jssp_args(inputs, "--generations", "1"), "--resume", "--device", "cpu"])
 

@@ -1318,3 +1318,145 @@ def test_exact_cvar_on_the_card_is_bit_identical_across_block_counts(cuda_device
         evaluator.set_mesh(population_mesh(devices=["cuda:0"] * blocks))
         got.append(evaluator.evaluate_packed(packed))
     np.testing.assert_array_equal(got[0], got[1])
+
+
+# ---------------------------------------------------------------------------
+# amplitude sharding (csrc/shard_kernels.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits", [14, 21, 22])
+def test_shard_pair_combine_equals_its_plain_version(cuda_device, n_qubits):
+    """The pair kernel (row S1) on a 1x4 shard of an n-qubit state, local
+    targets (low, high, with a local control) and a global target, against
+    its plain version on the same card inputs: equal bits."""
+    from queasars_tpu_torch.sim import shard_kernels as shk
+    from queasars_tpu_torch.sim.sharded_statevector import slot_entries
+
+    gen = torch.Generator().manual_seed(n_qubits)
+    rows, lb = 6, n_qubits - 2
+    state = torch.randn((rows, 2, 1 << lb), generator=gen).to(cuda_device)
+    partner = torch.randn((rows, 2, 1 << lb), generator=gen).to(cuda_device)
+    entries = slot_entries(torch.rand((rows, 3), generator=gen).to(cuda_device) * 6)
+    ctrl = torch.tensor([-1, 0, 3, lb - 1, -1, 2], dtype=torch.int32, device=cuda_device)
+    enabled = torch.tensor([True] * 5 + [False], device=cuda_device)
+    for target, other in ((1, None), (lb - 1, None), (-1, partner)):
+        control = torch.where(ctrl == target, torch.full_like(ctrl, -1), ctrl)
+        for side in ((0, 1) if target < 0 else (0,)):
+            got = shk.pair_combine(state, other, entries, control, enabled, lb, target, side)
+            want = shk.pair_combine_plain(state, other, entries, control, enabled, lb, target,
+                                          side)
+            assert torch.equal(got, want), (target, side)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fold", "per-gate"])
+def test_shard_energies_on_the_card_are_bit_identical_across_amp_widths(cuda_device, route):
+    """Exact energies at n=14 on 1, 2 and 4 amplitude cells of one card and
+    on 2 x 2: equal bits (the group products of the fold route included),
+    and within 1e-5 * max|table| of row 1 unsharded."""
+    from queasars_tpu_torch.parallel.amplitude import pop_amp_mesh
+    from queasars_tpu_torch.paulis import PauliSum, pauli_z_string
+    from queasars_tpu_torch.sim.sharded_evaluator import AmplitudeShardedExpectationEvaluator
+
+    n = 14
+    operator = PauliSum.sum([pauli_z_string(q, n) @ pauli_z_string((q + 3) % n, n)
+                             * float(q % 4 - 1.5) for q in range(n)])
+    population = EVQEPopulation.random_population(n, 4, 10, True, random_seed=2)
+    packed = PackedPopulation.pack(list(population.individuals))
+    got = {}
+    for shape in ((1, 1), (1, 2), (1, 4), (2, 2)):
+        evaluator = AmplitudeShardedExpectationEvaluator(
+            operator, pop_amp_mesh(*shape, devices=["cuda:0"] * (shape[0] * shape[1])),
+            use_fold=route == "fold")
+        got[shape] = evaluator.evaluate_packed(packed)
+    for value in got.values():
+        np.testing.assert_array_equal(value, got[(1, 1)])
+    table = evaluator._table.full().to(cuda_device)
+    want = sk.energies_exact(*packed_tensors(packed, device=cuda_device), table, n)
+    np.testing.assert_allclose(got[(1, 1)], want.cpu().numpy(),
+                               atol=1e-5 * float(table.abs().max()))
+
+
+@pytest.mark.cuda
+def test_sharded_solve_on_the_card_is_bit_identical_on_1x4_and_2x2(cuda_device):
+    """A seeded EVQE solve (n=14, exact, fold route, NFT last-layer and slot
+    sweeps) on four cells of one card: 1 x 4 and 2 x 2 give the same
+    trajectory bit for bit."""
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.parallel import population_mesh
+    from queasars_tpu_torch.paulis import PauliSum, pauli_z_string
+    from queasars_tpu_torch.solver import (
+        ConfiguredEstimator,
+        EVQEMinimumEigensolver,
+        EVQEMinimumEigensolverConfiguration,
+    )
+
+    n = 14
+    operator = PauliSum.sum([pauli_z_string(q, n) * float(q + 1) for q in range(n)])
+    runs = []
+    for amp in (4, 2):
+        result = EVQEMinimumEigensolver(EVQEMinimumEigensolverConfiguration(
+            configured_estimator=ConfiguredEstimator(), configured_sampler=None,
+            optimizer=BatchedNFT(NFTConfig(maxiter=6)), optimizer_n_circuit_evaluations=None,
+            max_generations=2, max_circuit_evaluations=None, termination_criterion=None,
+            random_seed=4, population_size=8, speciation_genetic_distance_threshold=2,
+            selection_alpha_penalty=0.1, selection_beta_penalty=0.1,
+            parameter_search_probability=0.5, topological_search_probability=0.5,
+            layer_removal_probability=0.1, use_tournament_selection=True, tournament_size=2,
+            device=cuda_device, mesh=population_mesh(devices=["cuda:0"] * 4),
+            shard_amplitudes=True, amp_devices=amp,
+        )).compute_minimum_eigenvalue(operator)
+        runs.append(([list(g.expectation_values) for g in result.population_evaluation_results],
+                     result.eigenvalue, repr(result.best_individual)))
+    assert runs[0] == runs[1]
+
+
+def _matmul_group_product(state, ut, local_bits, q0, m):
+    """S2's product by one complex ``torch.matmul`` per shard (the group
+    vectors as the columns of [B, d, instances]), in S2's layout."""
+    rows, d = state.shape[0], 1 << m
+    x = torch.complex(state[:, 0], state[:, 1]).reshape(
+        rows, (1 << local_bits) >> (q0 + m), d, 1 << q0)
+    columns = x.transpose(1, 2).reshape(rows, d, -1)
+    u = torch.complex(ut[:, 0], ut[:, 1]).transpose(-1, -2)
+    out = torch.matmul(u, columns).reshape(rows, d, -1, 1 << q0).transpose(1, 2)
+    return torch.stack([out.real, out.imag], dim=1).reshape(state.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_qubits", [14, 22])
+def test_shard_group_product_bits_across_shard_widths(cuda_device, n_qubits):
+    """The fold route's group product (m = 7) on P=8 n-qubit states cut as
+    the 1x1, 1x2, 1x4 and 2x2 meshes cut them: S2's bits never change.
+    ``torch.matmul`` (complex64, TF32 off) lies within 1e-5 of S2 and, on
+    the H100 with PyTorch 2.11 / CUDA 12.8, keeps its bits too; this test
+    is where a change of that shows."""
+    from queasars_tpu_torch.sim import shard_kernels as shk
+
+    gen = torch.Generator().manual_seed(n_qubits)
+    rows, q0, m = 8, min(7, n_qubits - 9), 7
+    state = torch.randn((rows, 2, 1 << n_qubits), generator=gen).to(cuda_device)
+    ut = (torch.randn((rows, 2, 128, 128), generator=gen) / 16).to(cuda_device)
+    tf32, precision = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    results = {}
+    try:
+        for n_pop, n_amp in ((1, 1), (1, 2), (1, 4), (2, 2)):
+            lb = n_qubits - n_amp.bit_length() + 1
+            for label, product in (("S2", shk.group_product), ("matmul", _matmul_group_product)):
+                results[(label, n_pop, n_amp)] = torch.cat([
+                    torch.cat([product(s.contiguous(), u, lb, q0, m)
+                               for s in block.chunk(n_amp, dim=2)], dim=2)
+                    for block, u in zip(state.chunk(n_pop), ut.chunk(n_pop))])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_float32_matmul_precision(precision)
+    gaps = {key: float((value - results[(key[0], 1, 1)]).abs().max())
+            for key, value in results.items()}
+    print(f"n={n_qubits}: largest gap from 1x1 {gaps}")
+    assert all(gap == 0.0 for (label, *_), gap in gaps.items() if label == "S2")
+    assert float((results[("matmul", 1, 1)] - results[("S2", 1, 1)]).abs().max()) <= 1e-5
+    assert all(gap == 0.0 for (label, *_), gap in gaps.items() if label == "matmul")

@@ -4,7 +4,7 @@
 QAOA, ADAPT-VQE, QNEAT, the QUBO encoders, the exact JSSP oracle, the
 command line ``__main__``, the external evaluators, the JSON and QASM
 codecs, checkpoints, profiling, the population mesh and its multi-process
-runtime (``parallel``), and the two plotting modules, which import
+runtime (``parallel``), amplitude sharding, and the two plotting modules, which import
 matplotlib only when they draw, among them) and ``chip_smoke`` (not run)
 import, and ``chip_smoke`` refuses to run without a CUDA device."""
 
@@ -32,7 +32,8 @@ required = ["queasars_tpu_torch." + m for m in (
     "genome.serialization", "genome.qasm", "problems.jssp.serialization", "solver.serialization",
     "solver.checkpoint", "utils.profiling", "solver.visualization",
     "problems.jssp.visualization", "parallel", "parallel.mesh", "parallel.multihost",
-    "utils.batch_invariant")]
+    "utils.batch_invariant", "parallel.amplitude", "sim.shard_kernels",
+    "sim.sharded_statevector", "sim.sharded_fold", "sim.sharded_evaluator")]
 assert set(required) <= set(names), sorted(set(required) - set(names))
 for name in names:
     importlib.import_module(name)

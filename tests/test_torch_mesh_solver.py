@@ -9,8 +9,8 @@ with the JAX package's 8-device solve as ``tests/test_torch_solver.py``
 holds the unsharded one (equal genome structures, energies to 1e-4 *
 max|table|).  A checkpoint written under an 8-block mesh resumes on one
 block to the uninterrupted trajectory and loads in the JAX package.  Every
-case in which the JAX package would shard amplitudes raises
-``NotImplementedError``.
+case in which the JAX package shards amplitudes builds the
+amplitude-sharded evaluator (``tests/test_torch_amp_solve.py`` runs it).
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from queasars_tpu.optim import BatchedNFT as JaxNFT
 from queasars_tpu.optim import NFTConfig as JaxNFTConfig
@@ -250,17 +251,61 @@ def test_first_generation_matches_the_jax_8_device_solve():
 
 
 def test_amplitude_sharding_cases_raise():
-    with pytest.raises(NotImplementedError, match="amplitude sharding"):
-        EVQEMinimumEigensolver(_configuration(None, shard_amplitudes=True)
-                               ).compute_minimum_eigenvalue(_hamiltonian())
-    with pytest.raises(NotImplementedError, match="amplitude sharding"):
-        EVQEMinimumEigensolver(_configuration(2)).compute_minimum_eigenvalue(_hamiltonian(21))
-    with pytest.raises(NotImplementedError, match="amplitude sharding"):
-        MoGVQEMinimumEigensolver(_configuration(None, shard_amplitudes=True)
-                                 ).compute_minimum_eigenvalue(_hamiltonian())
-    with pytest.raises(NotImplementedError, match="amplitude sharding"):
-        QNEATMinimumEigensolver(QNEATMinimumEigensolverConfiguration(
+    """Every case in which the JAX package shards amplitudes takes the
+    amplitude-sharded evaluator (it no longer raises): ``shard_amplitudes=
+    True`` with a mesh (EVQE, MoG-VQE), None with a mesh above 20 qubits
+    (EVQE, QNEAT; the evaluator is built, the 21-qubit solve is not run),
+    with the (pop, amp) factorization of the driver's rule; without a mesh,
+    or at 20 qubits by default, the unsharded evaluator stays."""
+    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+    from queasars_tpu_torch.sim.sharded_evaluator import AmplitudeShardedExpectationEvaluator
+    from queasars_tpu_torch.solver.driver import EvolvingAnsatzMinimumEigensolver
+
+    built = []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the 21-qubit tables: many small ops under parallel workers
+    try:
+
+        def capture(self, evaluator, aux_evaluators, initial_state):
+            built.append(evaluator)
+            raise StopIteration
+
+        def evaluator_of(solver, operator):
+            with pytest.MonkeyPatch.context() as patch:
+                patch.setattr(EvolvingAnsatzMinimumEigensolver, "_solve", capture)
+                with pytest.raises(StopIteration):
+                    solver.compute_minimum_eigenvalue(operator)
+            return built.pop()
+
+        sharded = evaluator_of(EVQEMinimumEigensolver(
+            _configuration(2, shard_amplitudes=True)), _hamiltonian())
+        assert isinstance(sharded, AmplitudeShardedExpectationEvaluator)
+        assert (sharded.n_pop_devices, sharded.n_amp_devices) == (2, 1)
+        wide = evaluator_of(EVQEMinimumEigensolver(_configuration(2)), _hamiltonian(21))
+        assert isinstance(wide, AmplitudeShardedExpectationEvaluator)
+        assert (wide.n_pop_devices, wide.n_amp_devices) == (1, 2)
+        assert isinstance(evaluator_of(MoGVQEMinimumEigensolver(
+            _configuration(4, shard_amplitudes=True, amp_devices=4)), _hamiltonian()),
+            AmplitudeShardedExpectationEvaluator)
+        qneat = evaluator_of(QNEATMinimumEigensolver(QNEATMinimumEigensolverConfiguration(
             configured_estimator=ConfiguredEstimator(), configured_sampler=None,
             max_generations=1, max_circuit_evaluations=None, termination_criterion=None,
             mesh=cpu_mesh(2), device="cpu",
-        )).compute_minimum_eigenvalue(_hamiltonian(21))
+        )), _hamiltonian(21))
+        assert isinstance(qneat, AmplitudeShardedExpectationEvaluator)
+        assert qneat.n_amp_devices == 2
+        for config, n in ((_configuration(None, shard_amplitudes=True), N_QUBITS),
+                          (_configuration(2), 20)):
+            assert isinstance(evaluator_of(EVQEMinimumEigensolver(config), _hamiltonian(n)),
+                              StatevectorExpectationEvaluator)
+        one = EVQEMinimumEigensolver(_configuration(2, shard_amplitudes=True, amp_devices=2))
+        two = EVQEMinimumEigensolver(_configuration(2, shard_amplitudes=True, amp_devices=1))
+        assert (_trajectory_of(one.compute_minimum_eigenvalue(_hamiltonian()))
+                == _trajectory_of(two.compute_minimum_eigenvalue(_hamiltonian())))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _trajectory_of(result):
+    return ([list(g.expectation_values) for g in result.population_evaluation_results],
+            result.eigenvalue, result.circuit_evaluations)

@@ -127,8 +127,9 @@ def test_configuration_and_operator_checks():
     with pytest.raises(ValueError, match="diagonal"):
         QAOAMinimumEigensolver(QAOAConfiguration(device="cpu")).compute_minimum_eigenvalue(
             transverse_field_ising(3))
-    with pytest.raises(NotImplementedError):
-        QAOAConfiguration(n_devices=2)
+    mesh = QAOAMinimumEigensolver(QAOAConfiguration(n_devices=2, device="cpu"))._resolve_mesh()
+    assert (mesh.n_pop, mesh.n_amp) == (1, 2)
+    assert QAOAMinimumEigensolver(QAOAConfiguration(n_devices=1))._resolve_mesh() is None
     for bad in (dict(reps=0), dict(n_starts=0), dict(maxiter=-1), dict(shots=0),
                 dict(eigenstate_top_k=0)):
         with pytest.raises(ValueError):

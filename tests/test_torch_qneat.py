@@ -203,12 +203,16 @@ def test_solve_matches_jax_generation_by_generation(polish):
 
 
 def test_unported_knobs_are_refused():
-    """Amplitude sharding is refused; the population mesh is ported
-    (``tests/test_torch_mesh_solver.py`` runs it)."""
+    """The mesh knobs reach the driver: amplitude sharding
+    (``shard_amplitudes`` / ``amp_devices``, run by
+    ``tests/test_torch_amp_solve.py``) and the population mesh
+    (``tests/test_torch_mesh_solver.py``); a population below 2 is
+    refused."""
     base = dict(configured_estimator=ConfiguredEstimator(), **_settings(None))
     for knob in (dict(amp_devices=2), dict(shard_amplitudes=True)):
-        with pytest.raises(NotImplementedError):
-            QNEATMinimumEigensolver(QNEATMinimumEigensolverConfiguration(**base, **knob))
+        solver = QNEATMinimumEigensolver(QNEATMinimumEigensolverConfiguration(**base, **knob))
+        for name, value in knob.items():
+            assert getattr(solver.configuration, name) == value
     assert QNEATMinimumEigensolverConfiguration(**base, n_devices=2).n_devices == 2
     with pytest.raises(ValueError):
         QNEATMinimumEigensolverConfiguration(**{**base, "population_size": 1})
