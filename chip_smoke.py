@@ -3278,33 +3278,48 @@ def host_energy(hamiltonian, state: int) -> float:
     return float((1.0 - 2.0 * parity) @ coeffs)
 
 
-def matmul_group_operands(state, ut, local_bits, q0, m):
+def unitary_factors(gen, rows, n):
+    """[rows, n, 2 (re/im), 2, 2] float32 per-qubit unitaries (QR of complex
+    normal matrices): random fold factors."""
+    import torch
+
+    z = torch.complex(torch.randn((rows, n, 2, 2), generator=gen, dtype=torch.float64),
+                      torch.randn((rows, n, 2, 2), generator=gen, dtype=torch.float64))
+    q, r = torch.linalg.qr(z)
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    u = q * (d / d.abs())[..., None, :]
+    return torch.stack([u.real, u.imag], dim=2).float()
+
+
+def matmul_group_operands(state, dense, local_bits, q0, m):
     """``torch.matmul``'s operands for S2's product on one shard: the
-    complex matrices U [B, d, d] and the group vectors as the columns of
-    [B, d, instances] (one batched product per row)."""
+    complex group matrices U [B, d, d] (``dense`` [B, 2, d, d], re and im)
+    and the group vectors as the columns of [B, d, instances] (one batched
+    product per row)."""
     import torch
 
     rows, d = state.shape[0], 1 << m
     x = torch.complex(state[:, 0], state[:, 1]).reshape(
         rows, (1 << local_bits) >> (q0 + m), d, 1 << q0)
     columns = x.transpose(1, 2).reshape(rows, d, -1).contiguous()
-    u = torch.complex(ut[:, 0], ut[:, 1]).transpose(-1, -2).contiguous()
-    return u, columns
+    return torch.complex(dense[:, 0], dense[:, 1]).contiguous(), columns
 
 
-def matmul_group_product(state, ut, local_bits, q0, m):
-    """S2's product by one ``torch.matmul`` (TF32 off by the caller), back
-    in the shard's [B, 2, 2^local_bits] layout."""
+def matmul_group_product(state, dense, local_bits, q0, m):
+    """S2's function by one ``torch.matmul`` with the dense Kronecker matrix
+    (TF32 off by the caller), back in the shard's [B, 2, 2^local_bits]
+    layout."""
     import torch
 
     rows, d = state.shape[0], 1 << m
-    u, columns = matmul_group_operands(state, ut, local_bits, q0, m)
+    u, columns = matmul_group_operands(state, dense, local_bits, q0, m)
     out = torch.matmul(u, columns).reshape(rows, d, -1, 1 << q0).transpose(1, 2)
     return torch.stack([out.real, out.imag], dim=1).reshape(state.shape)
 
 
-def group_product_mesh_gaps(state, ut, n, q0, m):
-    """S2 and ``torch.matmul`` on the n-qubit rows of ``state`` cut as the
+def group_product_mesh_gaps(state, entries, dense, n, q0, m):
+    """S2 (on the factor ``entries``) and ``torch.matmul`` (on their
+    ``dense`` Kronecker matrices) on the n-qubit rows of ``state`` cut as the
     1x1, 1x2, 1x4 and 2x2 meshes cut it (rows over pop, amplitudes over
     amp): per implementation and mesh, the largest difference from the 1x1
     result (0.0: equal bits)."""
@@ -3313,14 +3328,15 @@ def group_product_mesh_gaps(state, ut, n, q0, m):
     from queasars_tpu_torch.sim import shard_kernels as shk
 
     gaps = {}
-    for label, product in (("S2", shk.group_product), ("torch.matmul", matmul_group_product)):
+    for label, product, operand in (("S2", shk.group_product, entries),
+                                    ("torch.matmul", matmul_group_product, dense)):
         whole = None
         for mesh, (n_pop, n_amp) in AMP_MESHES.items():
             lb = n - n_amp.bit_length() + 1
             got = torch.cat([
                 torch.cat([product(s.contiguous(), u, lb, q0, m) for s in rows.chunk(n_amp, dim=2)],
                           dim=2)
-                for rows, u in zip(state.chunk(n_pop), ut.chunk(n_pop))])
+                for rows, u in zip(state.chunk(n_pop), operand.chunk(n_pop))])
             if whole is None:
                 whole = got
             gaps[(label, mesh)] = 0.0 if torch.equal(got, whole) else float(
@@ -3332,12 +3348,14 @@ def shard_kernel_records(n):
     """Phase 31's kernel checks at the 1x4 shard shapes of an n-qubit state
     (P=16): each shard kernel against its plain version on the same card
     inputs (equal bits), ms against the plain version's, the bound and the
-    library call where there is one; then S2 and ``torch.matmul`` across
-    shard widths."""
+    library call where there is one; S2 also on the groups (0, 7) and (7, 3)
+    and on shards of 2^5 to 2^8 amplitudes (tiles of 1 to 8 threads); then
+    S2 and ``torch.matmul`` across shard widths."""
     import torch
 
     from queasars_tpu_torch.sim import shard_kernels as shk
     from queasars_tpu_torch.sim.sampling import running_sum as plain_scan
+    from queasars_tpu_torch.sim.sharded_fold import factor_entries, group_fold_dense
     from queasars_tpu_torch.sim.sharded_statevector import slot_entries
 
     gen = torch.Generator(device="cpu").manual_seed(31)
@@ -3348,13 +3366,15 @@ def shard_kernel_records(n):
     entries = slot_entries(torch.rand((rows, 3), generator=gen).to(DEVICE) * 6.0)
     ctrl = torch.tensor([-1, 3] * (rows // 2), dtype=torch.int32, device=DEVICE)
     enabled = torch.ones(rows, dtype=torch.bool, device=DEVICE)
-    ut = torch.randn((rows, 2, 128, 128), generator=gen).to(DEVICE) / 16
+    factors = unitary_factors(gen, rows, 14).to(DEVICE)
+    group = factor_entries(factors[:, 7:14]).contiguous()
+    dense = torch.stack(group_fold_dense(factors, 7, 7), dim=1)  # [rows, 2, 128, 128]
     d_ctrl = torch.tensor([[2, 21, -1]] * rows, dtype=torch.int32, device=DEVICE)
     d_tgt = torch.tensor([[20, 5, 0]] * rows, dtype=torch.int32, device=DEVICE)
     phase = torch.randn((rows, 3, 2, 2), generator=gen).to(DEVICE)
     probs = (state[:, 0] ** 2).contiguous()
     work = state.clone()
-    u_c, columns_c = matmul_group_operands(state, ut, lb, 7, 7)
+    u_c, columns_c = matmul_group_operands(state, dense, lb, 7, 7)
     state_bytes = rows * 2 * length * 4
     cases = {
         "shard_pair_combine": (
@@ -3362,9 +3382,9 @@ def shard_kernel_records(n):
             lambda: shk.pair_combine_plain(state, partner, entries, ctrl, enabled, lb, -1, 1),
             3 * state_bytes, rows * length * 14.0, None),
         "shard_group_product": (
-            lambda: shk.group_product(state, ut, lb, 7, 7), None,
-            lambda: shk.group_product_plain(state, ut, lb, 7, 7),
-            2 * state_bytes + ut.numel() * 4, rows * length * 128 * 8.0,
+            lambda: shk.group_product(state, group, lb, 7, 7), None,
+            lambda: shk.group_product_plain(state, group, lb, 7, 7),
+            2 * state_bytes + group.numel() * 4, rows * length * 7 * 14.0,
             lambda: torch.matmul(u_c, columns_c)),
         "shard_diag_phase": (
             lambda: shk.diag_phase(state.clone(), d_ctrl, d_tgt, phase, lb, 2),
@@ -3377,7 +3397,8 @@ def shard_kernel_records(n):
             2 * probs.numel() * 4, probs.numel() * 1.0,
             lambda: torch.cumsum(probs.reshape(-1, 1024), dim=-1)),
     }
-    library_names = {"shard_group_product": "torch.matmul (complex64, TF32 off)",
+    library_names = {"shard_group_product": "torch.matmul (complex64, TF32 off, dense Kronecker "
+                                            "matrix)",
                      "shard_running_sum": "torch.cumsum"}
     tf32, precision = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3398,10 +3419,30 @@ def shard_kernel_records(n):
         say(f"  {name} ({rows} rows x 2^{lb}): equal bits to its plain version; {ms:.4f} ms "
             f"(plain {plain_ms:.3f} ms{extra}), bound {records[name]['bound'][0]:.4f} ms by "
             f"{records[name]['bound'][1]}")
+    for seg_len in (1, 16, 64, 1024, 2048, 4096):
+        values = probs[:, :1 << 14].contiguous()
+        require(torch.equal(shk.running_sum(values, seg_len),
+                            plain_scan(values.reshape(-1, seg_len)).reshape(values.shape)),
+                f"shard_running_sum differs from its plain version at seg_len {seg_len}")
+    say("  shard_running_sum: equal bits to its plain version at seg_len 1, 16, 64, 1024, 2048 "
+        "and 4096")
     whole = torch.randn((rows, 2, 1 << n), generator=gen).to(DEVICE)
-    gaps = group_product_mesh_gaps(whole, ut, n, 7, 7)
-    matmul_gap = float((matmul_group_product(state, ut, lb, 7, 7)
-                        - shk.group_product(state, ut, lb, 7, 7)).abs().max())
+    small = torch.randn((rows, 2, 1 << 8), generator=gen).to(DEVICE)
+    checked = []
+    for width, q0, m in ((lb, 0, 7), (lb, 7, 3), (8, 0, 7), (8, 7, 1), (7, 0, 7), (6, 0, 5),
+                         (6, 2, 4), (5, 0, 5), (5, 4, 1)):
+        shard = state if width == lb else small[:, :, :1 << width].contiguous()
+        short = factor_entries(factors[:, q0:q0 + m]).contiguous()
+        require(torch.equal(shk.group_product(shard, short, width, q0, m),
+                            shk.group_product_plain(shard, short, width, q0, m)),
+                f"shard_group_product differs from its plain version at 2^{width}, q0 {q0}, "
+                f"m {m}")
+        checked.append(f"({width}, {q0}, {m})")
+    say("  shard_group_product: equal bits to its plain version at (local bits, q0, m) "
+        + ", ".join(checked))
+    gaps = group_product_mesh_gaps(whole, group, dense, n, 7, 7)
+    matmul_gap = float((matmul_group_product(state, dense, lb, 7, 7)
+                        - shk.group_product(state, group, lb, 7, 7)).abs().max())
     torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.set_float32_matmul_precision(precision)
     for label in ("S2", "torch.matmul"):
@@ -3409,6 +3450,7 @@ def shard_kernel_records(n):
             f"largest gap from 1x1 " + " / ".join(f"{gaps[(label, k)]:.3e}" for k in AMP_MESHES)
             + (f"; {matmul_gap:.3e} from S2 at 2^{lb}" if label != "S2" else ""))
     require(all(gaps[("S2", k)] == 0.0 for k in AMP_MESHES), "S2 changes with the mesh")
+    require(matmul_gap <= 1e-5, f"S2 lies {matmul_gap:.3e} from torch.matmul's dense product")
     return records
 
 

@@ -13,8 +13,9 @@ wrapper                           pass (queasars_tpu/sim/...)
                                   partner in the shard or exchanged
                                   (``sharded_statevector.py:87-139``,
                                   ``sharded_fold.py:144-163``)
-:func:`group_product`             a dense 2^m x 2^m group matrix on m qubits
-                                  (``sharded_fold.py:105-142``)
+:func:`group_product`             a group's per-qubit fold factors on m
+                                  qubits, factor by factor (the Kronecker
+                                  matrix of ``sharded_fold.py:105-142``)
 :func:`diag_phase`                a kron layer's controlled phases
                                   (``sharded_fold.py:167-202``)
 :func:`running_sum`               the blocked sampler's block CDFs and
@@ -27,8 +28,12 @@ tensors it was given lie on the CPU; on CUDA tensors it launches the kernel
 or raises.  The kernels round every product and sum on its own, in the
 plain versions' order, so kernel and plain version agree bit for bit, and
 an amplitude's value never depends on the shard's length -- the engine's
-promise of equal bits across (pop, amp) factorizations.  ``launch_counts``
-counts launches, one per wrapper call that launched.
+promise of equal bits across (pop, amp) factorizations.  All four are
+bound by bytes on the card: the group product applies its m factors as m
+pair updates in shared-memory tiles (the shard read once and written once,
+no dense 2^m x 2^m matrix), the running sum scans a warp's 1024 values in
+registers and moves chunk totals between lanes by shuffles.
+``launch_counts`` counts launches, one per wrapper call that launched.
 """
 
 from __future__ import annotations
@@ -45,13 +50,22 @@ launch_counts: dict[str, int] = {
     "shard_running_sum": 0,
 }
 
-#: the running-sum kernel's longest segment (its shared-memory levels)
+#: the running-sum kernel's longest segment (its levels: chunks of 16, 16
+#: chunk totals, at most 16 of those totals' totals)
 RUNNING_SUM_MAX = 4096
+#: the group kernel's widest group (tile bits 0-4 and the group in 2^13)
+GROUP_MAX = 7
 
 
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def _expect_aligned(t: torch.Tensor, name: str) -> None:
+    """The kernels read and write 16 bytes a thread."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def _shard_shape(state: torch.Tensor, local_bits: int) -> int:
@@ -132,43 +146,38 @@ def pair_combine(state, partner, entries, ctrl_bit, enabled, local_bits: int, ta
 # ---------------------------------------------------------------------------
 
 
-def group_product_plain(state, ut, local_bits, q0, m):
-    """Plain version of :func:`group_product`: each output summed over the
-    group's inputs in index order in four real accumulators (re*re,
-    im*im, re*im, im*re), stacked so that each input is one product and
-    one sum."""
+def group_product_plain(state, entries, local_bits, q0, m):
+    """Plain version of :func:`group_product`: qubit q0's factor, then q0 +
+    1's and so on, each as :func:`pair_combine_plain` on a local target with
+    no control."""
     rows = state.shape[0]
-    d = 1 << m
-    x = state.reshape(rows, 2, (1 << local_bits) >> (q0 + m), d, 1 << q0)
-    # [4, rows, high, j, 1, low] against [4, rows, 1, j, k, 1]
-    xs = x[:, [0, 1, 0, 1]].transpose(0, 1)[:, :, :, :, None, :]
-    us = ut[:, [0, 1, 1, 0]].transpose(0, 1)[:, :, None, :, :, None]
-    acc = torch.zeros((4, rows, x.shape[2], d, x.shape[4]), dtype=state.dtype,
-                      device=state.device)
-    for j in range(d):
-        acc = acc + xs[:, :, :, j] * us[:, :, :, j]
-    rr, ii, ri, ir = acc
-    return torch.stack([rr - ii, ri + ir], dim=1).reshape(state.shape)
+    ctrl = torch.full((rows,), -1, dtype=torch.int32, device=state.device)
+    enabled = torch.ones(rows, dtype=torch.bool, device=state.device)
+    for j in range(m):
+        state = pair_combine_plain(state, None, entries[:, j], ctrl, enabled, local_bits,
+                                   q0 + j, 0)
+    return state
 
 
-def group_product(state, ut, local_bits: int, q0: int, m: int):
-    """A dense [2^m, 2^m] complex matrix on qubits [q0, q0 + m) of every
-    shard row, ``out[k] = sum_j U[k, j] x[j]`` over each group instance.
+def group_product(state, entries, local_bits: int, q0: int, m: int):
+    """The per-qubit 2x2 factors of qubits [q0, q0 + m) on every shard row,
+    qubit q0's first: their Kronecker product applied factor by factor.
 
-    :param ut: [B, 2, 2^m, 2^m] float32, the rows' matrices transposed
-        (``ut[b, plane, j, k] = U_b[k, j]``), planes re and im
+    :param entries: [B, m, 8] float32, qubit q0 + j's factor at j as u00,
+        u01, u10, u11 (re, im) pairs (``sharded_fold.factor_entries``)
     """
-    if not _on_cuda(state, ut):
-        return group_product_plain(state, ut, local_bits, q0, m)
+    if not _on_cuda(state, entries):
+        return group_product_plain(state, entries, local_bits, q0, m)
     rows = _shard_shape(state, local_bits)
-    if not (1 <= m <= 7 and 0 <= q0 and q0 + m <= local_bits):
-        raise ValueError("the group kernel takes 1 <= m <= 7 qubits inside the shard")
-    d = 1 << m
-    _expect(ut, "ut", torch.float32, (rows, 2, d, d))
+    if not (1 <= m <= GROUP_MAX and 0 <= q0 and q0 + m <= local_bits and 5 <= local_bits <= 30):
+        raise ValueError(f"the group kernel takes 1 <= m <= {GROUP_MAX} qubits inside a shard "
+                         f"of 2^5 to 2^30 amplitudes")
+    _expect(entries, "entries", torch.float32, (rows, m, 8))
+    _expect_aligned(state, "state")
     out = torch.empty_like(state)
     lib = _library()
     status = lib.load().qt_shard_group_product(
-        out.data_ptr(), state.data_ptr(), ut.data_ptr(), rows, local_bits, q0, m, _stream(),
+        out.data_ptr(), state.data_ptr(), entries.data_ptr(), rows, local_bits, q0, m, _stream(),
     )
     lib.check(status, "qt_shard_group_product")
     launch_counts["shard_group_product"] += 1
@@ -245,11 +254,13 @@ def running_sum(values, seg_len: int):
         raise ValueError(f"segments must hold a power of two up to {RUNNING_SUM_MAX} values")
     if values.dtype != torch.float32 or not values.is_contiguous():
         raise ValueError("values must be contiguous float32")
-    segments = values.numel() // seg_len
+    if values.numel() % seg_len:
+        raise ValueError(f"{values.numel()} values do not make whole segments of {seg_len}")
+    _expect_aligned(values, "values")
     out = torch.empty_like(values)
     lib = _library()
     status = lib.load().qt_shard_running_sum(
-        out.data_ptr(), values.data_ptr(), segments, seg_len, _stream(),
+        out.data_ptr(), values.data_ptr(), values.numel(), seg_len, _stream(),
     )
     lib.check(status, "qt_shard_running_sum")
     launch_counts["shard_running_sum"] += 1

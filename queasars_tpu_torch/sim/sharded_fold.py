@@ -4,15 +4,18 @@ Counterpart of ``queasars_tpu/sim/sharded_fold.py``.  The fold transform
 (``sim/fold_pipeline.py``) reduces a circuit to L+1 tensor-product "kron
 layers" and L controlled-diagonal phase passes, which run on a shard as:
 
-- **folded qubits** (q < ``folded_bits``): inside every shard, one dense
-  group product per group of up to 7 qubits (bits 0-6, then 7 up to
-  ``folded_bits``), [2^m, 2^m] built from the per-qubit 2x2 factors
-  (``_group_fold_dense``'s order) and applied by the group kernel
-  (``shard_kernels.group_product``, row S2).  Each output is summed over
-  its group in index order, so its value does not depend on how many group
-  instances a shard holds, i.e. not on the amplitude width (the JAX
-  package's XLA products need ``Precision.HIGHEST`` and a padded row for
-  the same reason);
+- **folded qubits** (q < ``folded_bits``): inside every shard, one group
+  product per group of up to 7 qubits (bits 0-6, then 7 up to
+  ``folded_bits``).  The JAX package builds each group's Kronecker matrix
+  [2^m, 2^m] from the per-qubit 2x2 factors (``_group_fold_dense``) for the
+  TPU's matrix unit; the group kernel (``shard_kernels.group_product``,
+  row S2) applies the factors themselves, qubit q0's first, as m pair
+  updates in shared-memory tiles: m x 14 operations per amplitude instead
+  of 2^m x 8, bound by the shard's bytes.  Each amplitude gets the same
+  operations in the same order whatever the shard's length, so its value
+  does not depend on the amplitude width (the JAX package's XLA products
+  need ``Precision.HIGHEST`` and a padded row for the same reason); it
+  differs from the dense product by float32 rounding;
 - **high qubits** (q >= ``folded_bits``): one pair combine per qubit
   (``shard_kernels.pair_combine``, row S1), the partner in the shard or
   exchanged, the slot engine's expression;
@@ -59,7 +62,9 @@ def group_fold_dense(factors: torch.Tensor, q0: int, m: int):
     """([..., 2^m, 2^m] re, im) group matrices from per-qubit factors
     ``factors`` [..., n, 2 (re/im), 2, 2]: entry [i, j] is the product over
     the group's qubits jq of ``A_{q0+jq}[bit_jq(i), bit_jq(j)]``, multiplied
-    in qubit order."""
+    in qubit order.  No path of the port applies it (the group kernel takes
+    the factors); it is the dense yardstick of the tests and of the card
+    check's library call."""
     size = 1 << m
     ids = torch.arange(size, device=factors.device)
     acc_re = acc_im = None
@@ -87,8 +92,8 @@ def factor_entries(factors: torch.Tensor) -> torch.Tensor:
 
 class FoldOperands:
     """A block's fold pipeline on one device, in the kernels' layouts: per
-    kron layer the transposed group matrices [K, B, 2, d, d], the high
-    qubits' entries [K, n_high, B, 8] and the phase slots [L, B, D]."""
+    kron layer each group's factor entries [K, B, m, 8], the high qubits'
+    entries [K, n_high, B, 8] and the phase slots [L, B, D]."""
 
     def __init__(self, gate_types, controls, angles, layer_mask, n_qubits, folded_bits, device):
         pipe = build_fold_pipeline(
@@ -99,11 +104,10 @@ class FoldOperands:
         self.groups = [(0, LANE_BITS)]
         if folded_bits > LANE_BITS:
             self.groups.append((LANE_BITS, folded_bits - LANE_BITS))
-        self.ut = []
-        for q0, m in self.groups:
-            re, im = group_fold_dense(factors, q0, m)  # [B, K, d, d]
-            ut = torch.stack([re, im], dim=2).transpose(-1, -2)  # [B, K, 2, j, k]
-            self.ut.append(ut.transpose(0, 1).contiguous())
+        self.group_entries = [
+            factor_entries(factors[:, :, q0:q0 + m]).transpose(0, 1).contiguous()
+            for q0, m in self.groups
+        ]
         self.entries = factor_entries(factors[:, :, folded_bits:]).permute(1, 2, 0, 3).contiguous()
         self.ctrl = pipe.diag_ctrl.transpose(0, 1).contiguous()
         self.tgt = pipe.diag_tgt.transpose(0, 1).contiguous()
@@ -115,8 +119,8 @@ def _kron_layer(row: AmpRow, states: dict, ops: dict, k: int, folded_bits: int) 
     lb = row.local_bits
     for a in row.cells:
         with device_context(row.devices[a]):
-            for (q0, m), ut in zip(ops[a].groups, ops[a].ut):
-                states[a] = shard_kernels.group_product(states[a], ut[k], lb, q0, m)
+            for (q0, m), entries in zip(ops[a].groups, ops[a].group_entries):
+                states[a] = shard_kernels.group_product(states[a], entries[k], lb, q0, m)
     for j, q in enumerate(range(folded_bits, row.n_qubits)):
         partners = None if q < lb else row.exchange(states, 1 << (q - lb))
         for a in row.cells:

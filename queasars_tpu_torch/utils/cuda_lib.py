@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 #: C entry points and their argument types (pointers and the stream are
 #: c_void_p; a bare Python int would be passed as a 32-bit int)
@@ -63,7 +64,7 @@ SIGNATURES = {
     "qt_shard_pair_combine": [_P] * 6 + [_I] * 4 + [_P],
     "qt_shard_group_product": [_P] * 3 + [_I] * 4 + [_P],
     "qt_shard_diag_phase": [_P] * 4 + [_I] * 4 + [_P],
-    "qt_shard_running_sum": [_P] * 2 + [_I] * 2 + [_P],
+    "qt_shard_running_sum": [_P] * 2 + [_L, _I, _P],
 }
 
 

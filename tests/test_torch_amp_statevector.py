@@ -10,7 +10,8 @@ mesh), with the port's cells on ``["cpu"] * 8``.
   JAX package's exactly; so do ``blocked_shot_positions``' draws.
 - The four shard kernels' plain versions: the pair combine equals the slot
   engine's plain version bit for bit on every control class, the group
-  product equals a float64 dense product to 2e-6 of its largest output,
+  product is m such pair combines bit for bit and equals the float64
+  product with its dense Kronecker matrix to 2e-6 of its largest output,
   the phase pass equals the fold
   pipeline's plain application, the running sum is XLA's CPU cumsum.
 - The mesh object: constructors, refusals, the exchange's pairing and its
@@ -49,6 +50,7 @@ from queasars_tpu_torch.sim import sharded_statevector as tss
 from queasars_tpu_torch.sim.evaluators import packed_tensors
 from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
 from queasars_tpu_torch.sim.sampling import running_sum
+from queasars_tpu_torch.sim.sharded_fold import factor_entries, group_fold_dense
 from queasars_tpu_torch.sim.statevector import apply_u3_pairs, u3_entries
 
 CELLS = ["cpu"] * 8
@@ -226,21 +228,62 @@ def test_pair_combine_on_a_global_target_equals_the_slot_engine():
     assert torch.equal(torch.cat([out[a] for a in row.cells], dim=-1), want)
 
 
+def _random_factors(rng, rows, n):
+    """[rows, n, 2 (re/im), 2, 2] float32 per-qubit unitaries (QR of complex
+    normal matrices), the fold pipeline's factor layout."""
+    z = rng.normal(size=(rows, n, 2, 2)) + 1j * rng.normal(size=(rows, n, 2, 2))
+    q, r = np.linalg.qr(z)
+    d = np.diagonal(r, axis1=-2, axis2=-1)
+    u = q * (d / np.abs(d))[..., None, :]
+    return torch.as_tensor(np.stack([u.real, u.imag], axis=2).astype(np.float32))
+
+
 def test_group_product_plain_equals_a_dense_product():
+    """The factored product of random per-qubit unitaries equals the float64
+    product with their dense Kronecker matrix (``group_fold_dense``) to
+    2e-6 of its largest output: the two differ by float32 rounding only."""
     rng = np.random.default_rng(2)
     rows, n = 3, 10
     state = torch.as_tensor(rng.normal(size=(rows, 2, 1 << n)).astype(np.float32))
+    factors = _random_factors(rng, rows, n)
     for q0, m in ((0, 7), (7, 3), (2, 4)):
         d = 1 << m
-        u = rng.normal(size=(rows, 2, d, d)).astype(np.float32)
-        ut = torch.as_tensor(u).transpose(-1, -2).contiguous()
-        got = shard_kernels.group_product(state, ut, n, q0, m).numpy().astype(np.float64)
+        entries = factor_entries(factors[:, q0:q0 + m]).contiguous()
+        got = shard_kernels.group_product(state, entries, n, q0, m).numpy().astype(np.float64)
+        re, im = group_fold_dense(factors.double(), q0, m)
+        uc = re.numpy() + 1j * im.numpy()
         x = state.numpy().astype(np.float64).reshape(rows, 2, -1, d, 1 << q0)
         xc = x[:, 0] + 1j * x[:, 1]
-        uc = u[:, 0].astype(np.float64) + 1j * u[:, 1]
         want = np.einsum("bkj,bhjl->bhkl", uc, xc).reshape(rows, -1)
         np.testing.assert_allclose(got[:, 0] + 1j * got[:, 1], want,
                                    atol=2e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize(("q0", "m"), [(0, 7), (7, 3), (2, 4), (7, 7)])
+def test_group_product_plain_is_m_pair_combines(q0, m):
+    """``group_product_plain`` is qubit q0's pair combine, then q0 + 1's and
+    so on (no control, every row on), bit for bit, and shards of half the
+    width and of the narrowest width that holds the group give the same
+    bits on their parts.  On the CPU the wrapper is the plain version, so
+    the first assertion pins that version's definition; the card tests
+    hold the kernel to it."""
+    rng = np.random.default_rng(q0 * 8 + m)
+    rows, n = 4, 15
+    state = torch.as_tensor(rng.normal(size=(rows, 2, 1 << n)).astype(np.float32))
+    entries = factor_entries(_random_factors(rng, rows, m)).contiguous()
+    want = state
+    for j in range(m):
+        want = shard_kernels.pair_combine(want, None, entries[:, j].contiguous(),
+                                          torch.full((rows,), -1, dtype=torch.int32),
+                                          torch.ones(rows, dtype=torch.bool), n, q0 + j)
+    got = shard_kernels.group_product(state, entries, n, q0, m)
+    assert torch.equal(got, want)
+    halves = [shard_kernels.group_product(h.contiguous(), entries, n - 1, q0, m)
+              for h in state.chunk(2, dim=2)]
+    assert torch.equal(torch.cat(halves, dim=2), want)
+    narrow = [shard_kernels.group_product(p.contiguous(), entries, q0 + m, q0, m)
+              for p in state.chunk(1 << (n - q0 - m), dim=2)]
+    assert torch.equal(torch.cat(narrow, dim=2), want)
 
 
 def test_diag_phase_plain_equals_the_fold_pipeline_plain_pass():

@@ -1413,32 +1413,49 @@ def test_sharded_solve_on_the_card_is_bit_identical_on_1x4_and_2x2(cuda_device):
     assert runs[0] == runs[1]
 
 
-def _matmul_group_product(state, ut, local_bits, q0, m):
-    """S2's product by one complex ``torch.matmul`` per shard (the group
-    vectors as the columns of [B, d, instances]), in S2's layout."""
+def _matmul_group_product(state, dense, local_bits, q0, m):
+    """S2's function by one complex ``torch.matmul`` per shard with the dense
+    Kronecker matrix (``dense`` [B, 2, d, d]; the group vectors as the
+    columns of [B, d, instances]), in S2's layout."""
     rows, d = state.shape[0], 1 << m
     x = torch.complex(state[:, 0], state[:, 1]).reshape(
         rows, (1 << local_bits) >> (q0 + m), d, 1 << q0)
     columns = x.transpose(1, 2).reshape(rows, d, -1)
-    u = torch.complex(ut[:, 0], ut[:, 1]).transpose(-1, -2)
-    out = torch.matmul(u, columns).reshape(rows, d, -1, 1 << q0).transpose(1, 2)
+    out = torch.matmul(torch.complex(dense[:, 0], dense[:, 1]), columns)
+    out = out.reshape(rows, d, -1, 1 << q0).transpose(1, 2)
     return torch.stack([out.real, out.imag], dim=1).reshape(state.shape)
+
+
+def _unitary_factors(gen, rows, n):
+    """[rows, n, 2 (re/im), 2, 2] float32 per-qubit unitaries (QR of complex
+    normal matrices)."""
+    z = torch.complex(torch.randn((rows, n, 2, 2), generator=gen, dtype=torch.float64),
+                      torch.randn((rows, n, 2, 2), generator=gen, dtype=torch.float64))
+    q, r = torch.linalg.qr(z)
+    d = torch.diagonal(r, dim1=-2, dim2=-1)
+    u = q * (d / d.abs())[..., None, :]
+    return torch.stack([u.real, u.imag], dim=2).float()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_qubits", [14, 22])
 def test_shard_group_product_bits_across_shard_widths(cuda_device, n_qubits):
-    """The fold route's group product (m = 7) on P=8 n-qubit states cut as
-    the 1x1, 1x2, 1x4 and 2x2 meshes cut them: S2's bits never change.
-    ``torch.matmul`` (complex64, TF32 off) lies within 1e-5 of S2 and, on
-    the H100 with PyTorch 2.11 / CUDA 12.8, keeps its bits too; this test
-    is where a change of that shows."""
+    """The fold route's group product (m = 7, random per-qubit unitaries) on
+    P=8 n-qubit states cut as the 1x1, 1x2, 1x4 and 2x2 meshes cut them:
+    S2's bits never change and equal its plain version's.  ``torch.matmul``
+    (complex64, TF32 off) with the dense Kronecker matrix of the same
+    factors lies within 1e-5 of S2 and, on the H100 with PyTorch 2.11 /
+    CUDA 12.8, keeps its bits too; this test is where a change of that
+    shows."""
     from queasars_tpu_torch.sim import shard_kernels as shk
+    from queasars_tpu_torch.sim.sharded_fold import factor_entries, group_fold_dense
 
     gen = torch.Generator().manual_seed(n_qubits)
     rows, q0, m = 8, min(7, n_qubits - 9), 7
     state = torch.randn((rows, 2, 1 << n_qubits), generator=gen).to(cuda_device)
-    ut = (torch.randn((rows, 2, 128, 128), generator=gen) / 16).to(cuda_device)
+    factors = _unitary_factors(gen, rows, q0 + m).to(cuda_device)
+    entries = factor_entries(factors[:, q0:]).contiguous()
+    dense = torch.stack(group_fold_dense(factors, q0, m), dim=1)
     tf32, precision = torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -1446,17 +1463,97 @@ def test_shard_group_product_bits_across_shard_widths(cuda_device, n_qubits):
     try:
         for n_pop, n_amp in ((1, 1), (1, 2), (1, 4), (2, 2)):
             lb = n_qubits - n_amp.bit_length() + 1
-            for label, product in (("S2", shk.group_product), ("matmul", _matmul_group_product)):
+            for label, product, operand in (("S2", shk.group_product, entries),
+                                            ("matmul", _matmul_group_product, dense)):
                 results[(label, n_pop, n_amp)] = torch.cat([
                     torch.cat([product(s.contiguous(), u, lb, q0, m)
                                for s in block.chunk(n_amp, dim=2)], dim=2)
-                    for block, u in zip(state.chunk(n_pop), ut.chunk(n_pop))])
+                    for block, u in zip(state.chunk(n_pop), operand.chunk(n_pop))])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.set_float32_matmul_precision(precision)
     gaps = {key: float((value - results[(key[0], 1, 1)]).abs().max())
             for key, value in results.items()}
     print(f"n={n_qubits}: largest gap from 1x1 {gaps}")
+    assert torch.equal(results[("S2", 1, 1)],
+                       shk.group_product_plain(state, entries, n_qubits, q0, m))
     assert all(gap == 0.0 for (label, *_), gap in gaps.items() if label == "S2")
     assert float((results[("matmul", 1, 1)] - results[("S2", 1, 1)]).abs().max()) <= 1e-5
     assert all(gap == 0.0 for (label, *_), gap in gaps.items() if label == "matmul")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("local_bits", [5, 6, 7, 8, 13, 14])
+def test_shard_group_product_equals_its_plain_version_at_every_tile_width(cuda_device,
+                                                                          local_bits):
+    """S2 on shards of 2^local_bits amplitudes against its plain version (m
+    pair combines) on the same card inputs, for every group that fits: equal
+    bits.  Below 2^10 a tile has fewer threads than a group of 7 has qubits;
+    at 2^14 a group above bit 6 leaves the contiguous tile."""
+    from queasars_tpu_torch.sim import shard_kernels as shk
+    from queasars_tpu_torch.sim.sharded_fold import factor_entries
+
+    gen = torch.Generator().manual_seed(local_bits)
+    rows = 6
+    state = torch.randn((rows, 2, 1 << local_bits), generator=gen).to(cuda_device)
+    factors = _unitary_factors(gen, rows, local_bits).to(cuda_device)
+    groups = [(0, 7), (7, 7), (7, 3), (5, 7), (0, 5), (2, 4), (0, 1), (local_bits - 1, 1)]
+    checked = 0
+    for q0, m in groups:
+        if q0 + m > local_bits:
+            continue
+        entries = factor_entries(factors[:, q0:q0 + m]).contiguous()
+        got = shk.group_product(state, entries, local_bits, q0, m)
+        assert torch.equal(got, shk.group_product_plain(state, entries, local_bits, q0, m)), (
+            q0, m)
+        checked += 1
+    assert checked >= 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("n", "shapes"), [(9, ((1, 4),)), (10, ((1, 8), (2, 4))),
+                                           (12, ((1, 8),))])
+def test_fold_energies_on_small_shards_of_the_card_equal_the_whole_state(cuda_device, n,
+                                                                         shapes):
+    """The fold route's exact energies on narrow shards of one card (2^7 to
+    2^9 amplitudes, where S2's tiles have 4 to 16 threads) equal the 1 x 1
+    mesh's bit for bit and lie within 1e-5 * max|table| of row 1
+    unsharded."""
+    from queasars_tpu_torch.parallel.amplitude import pop_amp_mesh
+    from queasars_tpu_torch.paulis import PauliSum, pauli_z_string
+    from queasars_tpu_torch.sim.sharded_evaluator import AmplitudeShardedExpectationEvaluator
+
+    operator = PauliSum.sum([pauli_z_string(q, n) @ pauli_z_string((q + 3) % n, n)
+                             * float(q % 4 - 1.5) for q in range(n)])
+    population = EVQEPopulation.random_population(n, 4, 8, True, random_seed=n)
+    packed = PackedPopulation.pack(list(population.individuals))
+    got = {}
+    for shape in ((1, 1),) + shapes:
+        evaluator = AmplitudeShardedExpectationEvaluator(
+            operator, pop_amp_mesh(*shape, devices=["cuda:0"] * (shape[0] * shape[1])),
+            use_fold=True)
+        got[shape] = evaluator.evaluate_packed(packed)
+    for shape, value in got.items():
+        np.testing.assert_array_equal(value, got[(1, 1)], err_msg=str(shape))
+    table = evaluator._table.full().to(cuda_device)
+    want = sk.energies_exact(*packed_tensors(packed, device=cuda_device), table, n)
+    np.testing.assert_allclose(got[(1, 1)], want.cpu().numpy(),
+                               atol=1e-5 * float(table.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_len", [1, 16, 64, 1024, 4096])
+def test_shard_running_sum_equals_its_plain_version(cuda_device, seg_len):
+    """The running-sum kernel (row S4) on 3 x 4096 probabilities cut into
+    segments of seg_len, then on each row's segment totals (the blocked
+    sampler's gathered block masses), against its plain version (XLA's CPU
+    order) on the card: equal bits."""
+    from queasars_tpu_torch.sim import shard_kernels as shk
+    from queasars_tpu_torch.sim.sampling import running_sum
+
+    gen = torch.Generator().manual_seed(seg_len)
+    values = (torch.randn((3, 4096), generator=gen) ** 2).to(cuda_device)
+    got = shk.running_sum(values, seg_len)
+    assert torch.equal(got, running_sum(values.reshape(-1, seg_len)).reshape(values.shape))
+    masses = got.reshape(3, -1, seg_len)[..., -1].contiguous()
+    assert torch.equal(shk.running_sum(masses, masses.shape[-1]), running_sum(masses))
