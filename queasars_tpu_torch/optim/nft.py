@@ -90,6 +90,7 @@ from queasars_tpu_torch.parallel.mesh import operand_device, run_batched
 from queasars_tpu_torch.sim.evaluators import expand_initial, packed_tensors
 from queasars_tpu_torch.utils import prng
 from queasars_tpu_torch.utils.batch_invariant import combine
+from queasars_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -207,30 +208,38 @@ def _nft_steps(
     apply = active & (n_free > 0)
     z0 = torch.zeros(pop, dtype=torch.float32, device=angles.device)
     for k in range(maxiter):
-        if k % reset_interval == 0:
-            z0 = objective(angles, _probe_keys(pop_keys, k, 0))
-        idx = torch.remainder(torch.full_like(n_free, k), n_free.clamp(min=1)).long()
-        layer, q, a = coords[rows, idx].unbind(-1)
-        theta = angles[rows, layer, q, a]
-        if five_point:
-            new_theta, minimum_value = _five_point_update(
-                objective, angles, rows, layer, q, a, theta, z0, pop_keys, k
-            )
-        else:
-            plus = angles.clone()
-            plus[rows, layer, q, a] = theta + math.pi / 2
-            minus = angles.clone()
-            minus[rows, layer, q, a] = theta - math.pi / 2
-            shift, minimum_value = nft_three_point_update(
-                z0, objective(plus, _probe_keys(pop_keys, k, 1)),
-                objective(minus, _probe_keys(pop_keys, k, 2)),
-            )
-            new_theta = theta + (shift + math.pi)
-        updated = angles.clone()
-        updated[rows, layer, q, a] = new_theta
-        angles = torch.where(apply[:, None, None, None], updated, angles)
-        z0 = torch.where(apply, minimum_value, z0)
+        with span("nft.step"):
+            if k % reset_interval == 0:
+                z0 = objective(angles, _probe_keys(pop_keys, k, 0))
+            idx = torch.remainder(torch.full_like(n_free, k), n_free.clamp(min=1)).long()
+            layer, q, a = coords[rows, idx].unbind(-1)
+            theta = angles[rows, layer, q, a]
+            if five_point:
+                new_theta, minimum_value = _five_point_update(
+                    objective, angles, rows, layer, q, a, theta, z0, pop_keys, k
+                )
+            else:
+                plus = angles.clone()
+                plus[rows, layer, q, a] = theta + math.pi / 2
+                minus = angles.clone()
+                minus[rows, layer, q, a] = theta - math.pi / 2
+                shift, minimum_value = nft_three_point_update(
+                    z0, objective(plus, _probe_keys(pop_keys, k, 1)),
+                    objective(minus, _probe_keys(pop_keys, k, 2)),
+                )
+                new_theta = theta + (shift + math.pi)
+            updated = angles.clone()
+            updated[rows, layer, q, a] = new_theta
+            angles = torch.where(apply[:, None, None, None], updated, angles)
+            z0 = torch.where(apply, minimum_value, z0)
     return angles, z0
+
+
+def _to_host(name: str, angles: torch.Tensor, energies: torch.Tensor):
+    """(angles, energies) as numpy; the host waits for the card inside span
+    ``name``."""
+    with span(name):
+        return angles.cpu().numpy(), energies.cpu().numpy()
 
 
 class BatchedNFT:
@@ -340,7 +349,7 @@ class BatchedNFT:
                 mesh, steps, (gt, ctrl, ang, lm, coords_t, n_free_t, active_t, pop_keys),
                 (evaluator._initial, operands),
             )
-            return out.cpu().numpy(), energies.cpu().numpy(), cfg.n_circuit_evaluations()
+            return (*_to_host("wait.nft_minimize", out, energies), cfg.n_circuit_evaluations())
         initial = evaluator.initial_states(pop)
         if self._in_kernel_sweep_applies(operands):
             rows = torch.arange(pop, device=device)
@@ -368,7 +377,7 @@ class BatchedNFT:
                 cfg.reset_interval, pop_keys, cfg.five_point,
             )
             out = transform.merge(layer_angles)
-        return out.cpu().numpy(), energies.cpu().numpy(), cfg.n_circuit_evaluations()
+        return (*_to_host("wait.nft_minimize", out, energies), cfg.n_circuit_evaluations())
 
     def _minimize_host(self, evaluator, packed, coords, n_free, active, angles):
         """Host-stepped NFT for evaluators without objective operands: the
@@ -496,4 +505,5 @@ class BatchedNFT:
             keys,
         )
         out, energies = run_batched(mesh, search, pop_args, (evaluator._initial, operands))
-        return out.cpu().numpy(), energies.cpu().numpy(), cfg.n_circuit_evaluations()
+        return (*_to_host("wait.nft_minimize_slots", out, energies),
+                cfg.n_circuit_evaluations())

@@ -53,6 +53,7 @@ from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
 from queasars_tpu_torch.sim.sampling import sample_indices
 from queasars_tpu_torch.utils import prng
 from queasars_tpu_torch.utils.batch_invariant import row_mean
+from queasars_tpu_torch.utils.profiling import spanned
 
 
 def mxu_fold_enabled(use_mxu, n_qubits: int, path: str = "exact", device="cuda") -> bool:
@@ -65,6 +66,7 @@ def mxu_fold_enabled(use_mxu, n_qubits: int, path: str = "exact", device="cuda")
     return bool(use_mxu) and fold_kernels.fold_supported(n_qubits, device, path)
 
 
+@spanned("evaluator.population_probs")
 def population_probs(
     gate_types, controls, angles, layer_mask, *, n_qubits: int, initial_state=None, use_mxu=None
 ) -> torch.Tensor:
@@ -112,6 +114,7 @@ def population_shot_indices(
     return sample_indices(keys, probs, shots)
 
 
+@spanned("evaluator.population_energies")
 def population_energies(
     gate_types,
     controls,

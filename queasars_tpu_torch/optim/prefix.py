@@ -24,6 +24,7 @@ import torch
 from queasars_tpu_torch.optim.objective import mxu_fold_enabled
 from queasars_tpu_torch.sim import fold_kernels, slot_kernels
 from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
+from queasars_tpu_torch.utils.profiling import spanned
 
 #: the slot states kernel's size cap in the reference (its VMEM limit)
 SLOT_STATES_MAX_QUBITS = 20
@@ -47,6 +48,7 @@ def choose_prefix_engine(n_qubits: int, device) -> str:
     return "slot"
 
 
+@spanned("evaluator.simulate_prefix_states")
 def simulate_prefix_states(
     gate_types, controls, angles, mask, n_qubits: int, initial_state=None, mode: str = "slot"
 ) -> torch.Tensor:

@@ -24,6 +24,7 @@ import torch
 from queasars_tpu_torch.optim.prefix import prefix_mask
 from queasars_tpu_torch.sim import fold_kernels, slot_kernels
 from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
+from queasars_tpu_torch.utils.profiling import spanned
 
 
 def _swept_layer(tensors, last_layer):
@@ -32,6 +33,7 @@ def _swept_layer(tensors, last_layer):
     return [t[rows, last_layer].contiguous() for t in tensors]
 
 
+@spanned("evaluator.nft_layer_sweep_launch")
 def nft_layer_sweep_launch(
     gate_types, controls, angles, layer_mask, last_layer, coords_qa,
     n_free, active, table, *, n_qubits: int, maxiter: int, reset_interval: int,

@@ -35,6 +35,7 @@ from queasars_tpu_torch.problems.jssp.problem_instances import (
     ScheduledOperation,
     UnscheduledOperation,
 )
+from queasars_tpu_torch.utils.profiling import spanned
 
 
 class JSSPDomainWallHamiltonianEncoder:
@@ -55,6 +56,7 @@ class JSSPDomainWallHamiltonianEncoder:
     Reference: domain_wall_hamiltonian_encoder.py:23-75 (same defaults).
     """
 
+    @spanned("encode")
     def __init__(
         self,
         jssp_instance: JobShopSchedulingProblemInstance,
@@ -91,6 +93,7 @@ class JSSPDomainWallHamiltonianEncoder:
             self._prepare_encoding()
         return self._n_qubits
 
+    @spanned("encode")
     def get_problem_hamiltonian(self) -> PauliSum:
         """The problem Hamiltonian as a diagonal PauliSum (reference: :87-104)."""
         if not self._encoding_prepared:

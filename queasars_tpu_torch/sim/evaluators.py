@@ -48,6 +48,7 @@ from queasars_tpu_torch.sim.grouped_sampling import (
 from queasars_tpu_torch.utils import prng
 from queasars_tpu_torch.utils.bitstring_evaluation import BitstringEvaluator
 from queasars_tpu_torch.utils.device import resolve_device
+from queasars_tpu_torch.utils.profiling import span, spanned
 
 
 class CircuitEvaluatorException(Exception):
@@ -132,7 +133,9 @@ class BaseCircuitEvaluator(ABC):
         """Run ``fn(pop_args, rep_args)`` on the evaluator's device, or over
         the attached mesh (population padded to the mesh's pad multiple,
         outputs cut back); numpy."""
-        return run_batched(self.mesh, fn, pop_args, rep_args).cpu().numpy()
+        out = run_batched(self.mesh, fn, pop_args, rep_args)
+        with span("wait.evaluate_packed"):
+            return out.cpu().numpy()
 
     def _genome(self, packed: PackedPopulation, angles=None) -> tuple:
         """``packed_tensors`` where :meth:`_run_batched` takes them: on the
@@ -215,6 +218,7 @@ class _OperatorEvaluator(BaseCircuitEvaluator):
             **operands,
         )
 
+    @spanned("evaluator.evaluate_packed")
     def evaluate_packed(self, packed, angles=None):
         from queasars_tpu_torch.optim.objective import objective_operands
 

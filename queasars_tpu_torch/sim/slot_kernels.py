@@ -49,6 +49,7 @@ import torch
 
 from queasars_tpu_torch.sim.sampling import hierarchical_sample_plain
 from queasars_tpu_torch.sim.statevector import probabilities, simulate_circuits
+from queasars_tpu_torch.utils.profiling import span
 
 launch_counts: dict[str, int] = {
     "energies_exact": 0,
@@ -269,8 +270,9 @@ def sweep_transitions(coords, n_free, active, n_qubits, maxiter):
     flags = np.zeros(max(maxiter, 1), np.uint8)
     if maxiter < 2:
         return flags
-    qubits = coords.cpu().numpy()[:, :, 0].clip(0, n_qubits - 1)
-    n_free, active = n_free.cpu().numpy(), active.cpu().numpy()
+    with span("wait.sweep_transitions"):
+        qubits = coords.cpu().numpy()[:, :, 0].clip(0, n_qubits - 1)
+        n_free, active = n_free.cpu().numpy(), active.cpu().numpy()
     idx = np.arange(maxiter)[None, :] % np.maximum(n_free, 1)[:, None]
     probed = np.take_along_axis(qubits, idx, axis=1)
     moves = (active & (n_free > 0))[:, None] & (probed[:, 1:] != probed[:, :-1])

@@ -69,6 +69,7 @@ from queasars_tpu_torch.solver.termination_criteria import (
 )
 from queasars_tpu_torch.utils import prng
 from queasars_tpu_torch.utils.bitstring_evaluation import BitstringEvaluator
+from queasars_tpu_torch.utils.profiling import span, spanned
 
 ListOrDict = Union[list, dict, None]
 
@@ -223,6 +224,7 @@ class EvolvingAnsatzMinimumEigensolver:
             operator=operator, aux_operators=aux_operators, initial_state=None
         )
 
+    @spanned("solve")
     def compute_minimum_eigenvalue_with_initial_state(
         self,
         operator: PauliSum,
@@ -237,6 +239,7 @@ class EvolvingAnsatzMinimumEigensolver:
 
         mesh = self._resolve_mesh()
 
+        @spanned("evaluator.build")
         def build_evaluator(op: PauliSum) -> BaseCircuitEvaluator:
             config = self.configuration
             if self.amplitude_sharding_applies(mesh, op.n_qubits):
@@ -341,6 +344,7 @@ class EvolvingAnsatzMinimumEigensolver:
                 aux_evaluators = {k: build_aux(op) for k, op in aux_operators.items()}
         return self._solve(evaluator, aux_evaluators, None)
 
+    @spanned("solve")
     def compute_minimum_function_value(
         self,
         operator: BitstringEvaluator,
@@ -356,6 +360,7 @@ class EvolvingAnsatzMinimumEigensolver:
 
         mesh = self._resolve_mesh()
 
+        @spanned("evaluator.build")
         def build_evaluator(op: BitstringEvaluator) -> BaseCircuitEvaluator:
             evaluator = BitstringFunctionEvaluator(
                 bitstring_evaluator=op, shots=config.configured_sampler.shots,
@@ -482,8 +487,10 @@ class EvolvingAnsatzMinimumEigensolver:
 
         self.logger.info("Starting evolution!")
 
+        operators = self.configuration.evolutionary_operators
+        labels = [f"operator.{type(operator).__name__}" for operator in operators]
         while not terminate:
-            for operator in self.configuration.evolutionary_operators:
+            for operator, label in zip(operators, labels):
                 # budget checks before each operator (reference: :405-428)
                 if (
                     self.configuration.max_circuit_evaluations is not None
@@ -507,9 +514,10 @@ class EvolvingAnsatzMinimumEigensolver:
                     terminate = True
                 if terminate:
                     break
-                population = operator.apply_operator(
-                    population=population, operator_context=operator_context
-                )
+                with span(label):
+                    population = operator.apply_operator(
+                        population=population, operator_context=operator_context
+                    )
             else:
                 # one full pipeline pass completed: persist the whole solver
                 # state, so a crash resumes the exact trajectory
@@ -563,15 +571,21 @@ class EvolvingAnsatzMinimumEigensolver:
         sampled with the configured sampler's shots under the key
         ``fold_in(PRNGKey(seed), 0x5EED)`` when one is configured, exact
         otherwise (reference: driver.py ``_measure_eigenstate``)."""
-        packed = PackedPopulation.pack([individual])
-        probs = population_probs(
-            *packed_tensors(packed, device=evaluator.device),
-            n_qubits=packed.n_qubits,
-            initial_state=evaluator.initial_states(1),
-        )[0]
-        sampler = self.configuration.configured_sampler
-        if sampler is not None:
-            key = prng.fold_in(prng.PRNGKey(sampler.seed), EIGENSTATE_KEY_SALT)
-            counts = sample_counts(key, probs, sampler.shots)
-            return quasi_distribution(counts.cpu().numpy().astype(np.float64) / sampler.shots)
-        return quasi_distribution(probs.cpu().numpy())
+        with span("eigenstate") as region:
+            packed = PackedPopulation.pack([individual])
+            probs = population_probs(
+                *packed_tensors(packed, device=evaluator.device),
+                n_qubits=packed.n_qubits,
+                initial_state=evaluator.initial_states(1),
+            )[0]
+            sampler = self.configuration.configured_sampler
+            if sampler is not None:
+                key = prng.fold_in(prng.PRNGKey(sampler.seed), EIGENSTATE_KEY_SALT)
+                probs = sample_counts(key, probs, sampler.shots)
+            with span("wait.eigenstate"):
+                values = probs.cpu().numpy()
+            if sampler is not None:
+                values = values.astype(np.float64) / sampler.shots
+            distribution = quasi_distribution(values)
+            region.set(entries=len(distribution))
+            return distribution

@@ -1557,3 +1557,70 @@ def test_shard_running_sum_equals_its_plain_version(cuda_device, seg_len):
     assert torch.equal(got, running_sum(values.reshape(-1, seg_len)).reshape(values.shape))
     masses = got.reshape(3, -1, seg_len)[..., -1].contiguous()
     assert torch.equal(shk.running_sum(masses, masses.shape[-1]), running_sum(masses))
+
+
+@pytest.mark.cuda
+def test_traced_solve_starts_each_slot_kernel_after_an_evaluator_span(
+    cuda_device, tmp_path, monkeypatch
+):
+    """``utils/profiling.trace`` around a 14-qubit slot-route EVQE solve
+    writes the port's spans and the card's kernels on one clock, with no
+    host operator events: every slot kernel starts after the start of some
+    ``evaluator.*`` span and before the solve span ends (its last wait
+    drains the card), and the kernels of the slot engine all appear."""
+    import glob
+    import json
+    import os
+
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.problems.jssp import JSSPDomainWallHamiltonianEncoder
+    from queasars_tpu_torch.problems.jssp.random_instances import (
+        random_job_shop_scheduling_instance,
+    )
+    from queasars_tpu_torch.solver import (
+        ConfiguredEstimator,
+        EVQEMinimumEigensolver,
+        EVQEMinimumEigensolverConfiguration,
+    )
+    from queasars_tpu_torch.utils.profiling import trace
+
+    monkeypatch.setenv("QUEASARS_MXU", "0")
+    instance = random_job_shop_scheduling_instance(
+        "t14", n_jobs=3, n_machines=2, relative_op_amount=0.5, op_duration={1: 0.5, 2: 0.5},
+        random_seed=0,
+    )
+    hamiltonian = JSSPDomainWallHamiltonianEncoder(
+        instance, makespan_limit=6).get_problem_hamiltonian()
+    assert hamiltonian.n_qubits == 14
+
+    def solve():
+        return EVQEMinimumEigensolver(EVQEMinimumEigensolverConfiguration(
+            configured_estimator=ConfiguredEstimator(), configured_sampler=None,
+            optimizer=BatchedNFT(NFTConfig(maxiter=8)), optimizer_n_circuit_evaluations=None,
+            max_generations=2, max_circuit_evaluations=None, termination_criterion=None,
+            random_seed=3, population_size=8, speciation_genetic_distance_threshold=2,
+            selection_alpha_penalty=0.1, selection_beta_penalty=0.1,
+            parameter_search_probability=0.5, topological_search_probability=0.5,
+            layer_removal_probability=0.1, pack_min_layers=4,
+        )).compute_minimum_eigenvalue(hamiltonian)
+
+    solve()
+    with trace(str(tmp_path), label="t14"):
+        solve()
+    (path,) = glob.glob(os.path.join(str(tmp_path), "t14.*.pt.trace.json"))
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "program"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and any(k in e["name"] for k in ("slot_pass", "energy_partials", "sweep_pass"))]
+    assert {e.get("cat") for e in events} <= {"program", "kernel", "gpu_memcpy", "gpu_memset"}
+    solve_span, = [e for e in spans if e["name"] == "solve"]
+    starts = sorted(e["ts"] for e in spans if e["name"].startswith("evaluator."))
+    names = {e["name"] for e in spans}
+    assert {"evaluator.population_energies", "evaluator.nft_layer_sweep_launch",
+            "wait.sweep_transitions", "nft.step", "eigenstate"} <= names
+    assert {k for k in ("slot_pass", "energy_partials", "sweep_pass")
+            if any(k in e["name"] for e in kernels)} == {"slot_pass", "energy_partials",
+                                                          "sweep_pass"}
+    for kernel in kernels:
+        assert starts[0] <= kernel["ts"] <= solve_span["ts"] + solve_span["dur"], kernel["name"]
