@@ -16,7 +16,9 @@ with elapsed seconds:
 3. slot kernels at full width (n=20): every slot kernel against its plain
    PyTorch version on the same inputs on the card, timed with CUDA events,
    with the slot engine's plane bytes per call and GB/s (rows 1, 2, 5)
-   and the sweep's bytes by its design's rule and GB/s (row 3);
+   and the sweep's bytes by its design's rule and GB/s (row 3); then the
+   NFT step kernel's steps against the PyTorch step loop on the card, bit
+   for bit, and the time of a step's bookkeeping on each;
 4. fold kernels at the same shapes: every fold kernel against its plain
    version, the fold energies against the slot energies (the two routes
    compute one function), equal bits from equal inputs, timings, the
@@ -203,6 +205,7 @@ from __future__ import annotations
 
 import faulthandler
 import importlib
+import itertools
 import json
 import subprocess
 import sys
@@ -309,6 +312,7 @@ SWEEP_RESET = 32
 SLOT_SOURCE = "queasars_tpu_torch/csrc/slot_kernels.cu"
 FOLD_SOURCE = "queasars_tpu_torch/csrc/fold_kernels.cu"
 COMPACT_SOURCE = "queasars_tpu_torch/csrc/compact_kernels.cu"
+STEP_SOURCE = "queasars_tpu_torch/csrc/nft_step.cu"
 #: kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "energies_exact": (SLOT_SOURCE, "queasars_tpu/sim/pallas_kernels.py:367"),
@@ -326,6 +330,7 @@ KERNELS = {
         FOLD_SOURCE, "queasars_tpu/sim/pallas_fold_kernels.py:1043"),
     "compact_energies_exact": (COMPACT_SOURCE, "queasars_tpu/sim/compact_kernels.py:338"),
     "compact_probs": (COMPACT_SOURCE, "queasars_tpu/sim/compact_kernels.py:353"),
+    "nft_step": (STEP_SOURCE, "none: the NFT step's bookkeeping (XLA inside the JAX jit)"),
 }
 #: the compacted-gate kernels, which no solve launches: their launches are
 #: counted over tools/port_compact.py's path (phase 7)
@@ -857,6 +862,48 @@ def phase_kernels(w):
         say("  " + engine_rate(name, slot_engine_bytes(gt, m, n), records[name]["ms"]))
     say("  " + engine_rate("energies_exact bench", slot_engine_bytes(bgt, bmask, n), bench_ms))
     return finish_records(records, bounds)
+
+
+def phase_nft_step(w):
+    """The NFT step kernel (``csrc/nft_step.cu``) under a parameter search's
+    steps at n=20 (each individual's last layer, probes from the prefix
+    states on the slot energies kernel): ``_nft_steps`` on the card against
+    its PyTorch loop on the card, bit for bit, then both timed per step with
+    an objective that launches nothing, so only the bookkeeping is timed."""
+    import torch
+
+    from queasars_tpu_torch.optim import nft
+    from queasars_tpu_torch.sim import slot_kernels as sk
+
+    n, table, maxiter = N_QUBITS, w.table, SOLVE["maxiter"]
+    prefix = sk.population_states(w.gt, w.ctrl, w.ang, w.pmask, n)
+    coords = torch.cat([w.last[:, None, None].expand(-1, w.k_max, 1).to(torch.int32),
+                        w.coords], dim=2).long()
+    args = (coords, w.n_free, w.active, maxiter, SWEEP_RESET)
+
+    def objective(angles, keys):
+        return sk.energies_exact(w.gt, w.ctrl, angles, w.smask, table, n, prefix)
+
+    reset_launch_counts()
+    a_k, z_k = nft._nft_steps(objective, w.ang, *args)
+    launches = launch_counts()["nft_step"]
+    a_p, z_p = nft._nft_steps_torch(objective, w.ang, *args)
+    require(launches == maxiter + 1, f"the step kernel launched {launches} times")
+    require(torch.equal(a_k, a_p) and torch.equal(z_k, z_p),
+            "the step kernel's angles or energies differ from the PyTorch loop's")
+    require(torch.equal(a_k[0], w.ang[0]), "the steps moved an inactive individual")
+    energies = itertools.cycle([objective(w.ang, None) for _ in range(3)])
+
+    def constant(angles, keys):
+        return next(energies)
+
+    moved = 4 * w.ang.numel() * 4 + 4 * 4 * w.pop
+    rec = {"max_abs_err": 0.0, "bound": bound(moved, 0.0),
+           "ms": time_ms(lambda: nft._nft_steps(constant, w.ang, *args), 5) / maxiter,
+           "plain_ms": time_ms(lambda: nft._nft_steps_torch(constant, w.ang, *args), 5) / maxiter}
+    say(f"  nft_step: {rec['ms']:.4f} ms a step (PyTorch loop {rec['plain_ms']:.4f} ms), "
+        f"bound {rec['bound'][0]:.6f} ms by {rec['bound'][1]}; equal bits over {maxiter} steps")
+    return {"nft_step": rec}
 
 
 def sweep_records(rec, w, route, bounds):
@@ -3890,6 +3937,8 @@ def main() -> int:
         workload = Workload(table)
         records = phase_kernels(workload)
         say("phase kernels: all four slot kernels agree with their plain versions")
+        records.update(phase_nft_step(workload))
+        say("phase NFT step: the step kernel keeps the PyTorch loop's bits")
         records.update(phase_fold_kernels(workload))
         say("phase fold kernels: all four fold kernels agree with their plain versions "
             "and the slot route")
@@ -3904,6 +3953,9 @@ def main() -> int:
         for route in ROUTE_KERNELS:
             counts = phase_solve(route, seed, encoder, hamiltonian, table)
             launches.update({name: counts[name] for name in ROUTE_KERNELS[route]})
+            require(counts["nft_step"] > 0, f"the NFT step kernel did not run on the {route} route")
+            if route == "slot":
+                launches["nft_step"] = counts["nft_step"]
         seed3, encoder3, hamiltonian3 = jssp_with_qubits(3, 3, 5, CONFIG3["qubits"], 1)
         for route, route_kernels in SAMPLER_ROUTE_KERNELS.items():
             counts = phase_sampler_solve(route, seed3, encoder3, hamiltonian3)

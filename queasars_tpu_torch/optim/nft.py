@@ -8,7 +8,10 @@ parameter search re-enters every probe from its slot's cached prefix state
 (energies kernel).  The probes take the kron-fold route (fold kernels) by
 default and the slot route under ``QUEASARS_MXU=0``, as in the reference
 (``optim/objective.py``).  On the card, steps only enqueue launches;
-results reach the host once per call.
+results reach the host once per call.  A three-point step there is its
+probes' objective calls and one launch of the step kernel
+(``csrc/nft_step.cu``), which fits, moves the angles and writes the next
+step's probes in the PyTorch loop's bits.
 
 Against a sampler evaluator every probe samples shots: individual p's keys
 are ``split(PRNGKey(seed), P)[p]`` and its probe of step k draws with
@@ -87,6 +90,7 @@ from queasars_tpu_torch.optim.sweep_kernel_launch import (
     nft_layer_sweep_launch,
 )
 from queasars_tpu_torch.parallel.mesh import operand_device, run_batched
+from queasars_tpu_torch.sim import slot_kernels
 from queasars_tpu_torch.sim.evaluators import expand_initial, packed_tensors
 from queasars_tpu_torch.utils import prng
 from queasars_tpu_torch.utils.batch_invariant import combine
@@ -202,7 +206,43 @@ def _nft_steps(
     over ``coords`` [P, K, 3] (layer, qubit, angle); ``objective(angles,
     keys)`` gets each probe's keys from ``pop_keys`` [P, 2] (None: exact
     objectives); ``five_point`` takes the two-frequency step.  Returns
-    (angles, z0)."""
+    (angles, z0).  Three-point steps on the card take one ``qt_nft_step``
+    launch a step (:func:`_nft_steps_on_card`), elsewhere the PyTorch loop
+    (:func:`_nft_steps_torch`); both give the same bits."""
+    if angles.device.type == "cuda" and not five_point and maxiter > 0:
+        return _nft_steps_on_card(
+            objective, angles, coords, n_free, active, maxiter, reset_interval, pop_keys
+        )
+    return _nft_steps_torch(
+        objective, angles, coords, n_free, active, maxiter, reset_interval, pop_keys, five_point
+    )
+
+
+def _nft_steps_on_card(
+    objective, angles, coords, n_free, active, maxiter, reset_interval, pop_keys=None
+):
+    """:func:`_nft_steps`' three-point steps on the card: per step the
+    probes' objective calls and one launch that fits, moves the angles and
+    z0 and writes the next step's probes (``slot_kernels.NFTSteps``), one
+    more launch before the first step."""
+    steps = slot_kernels.NFTSteps(angles, coords, n_free, active)
+    z0 = None
+    for k in range(maxiter):
+        with span("nft.step"):
+            if k % reset_interval == 0:
+                z0 = objective(steps.angles, _probe_keys(pop_keys, k, 0))
+            z1 = objective(steps.plus, _probe_keys(pop_keys, k, 1))
+            z3 = objective(steps.minus, _probe_keys(pop_keys, k, 2))
+            z0 = steps.step(k, z0, z1, z3, probe_next=k + 1 < maxiter)
+    return steps.angles, z0
+
+
+def _nft_steps_torch(
+    objective, angles, coords, n_free, active, maxiter, reset_interval, pop_keys=None,
+    five_point=False,
+):
+    """:func:`_nft_steps` as PyTorch operations, on any device: the CPU's
+    path, the five-point step's, and the card kernel's plain version."""
     pop = angles.shape[0]
     rows = torch.arange(pop, device=angles.device)
     apply = active & (n_free > 0)

@@ -3,7 +3,10 @@
 Counterpart of ``queasars_tpu/optim/nft_math.py``.  The CUDA sweep kernels
 (``sweep_update`` in ``csrc/sweep.cuh``, shared by the slot and fold
 sweeps) restate the same expressions; the plain sweeps of both kernel
-families step through :func:`layer_sweep_plain`.
+families step through :func:`layer_sweep_plain`.  The NFT step kernel
+(``csrc/nft_step.cu``) restates :func:`nft_three_point_update` and the
+step's angle updates in their order and rounding, so
+``optim/nft.py::_nft_steps`` gives the same bits on and off it.
 
 Math (arXiv:1903.12166, matching qiskit's ``nakanishi_fujii_todo``): the
 objective is an exact sinusoid in each U3 angle,

@@ -15,7 +15,10 @@ wrapper                        replaces (queasars_tpu/sim/pallas_kernels.py)
 =============================  ===========================================
 
 :func:`sample_planes` runs the sampled kernels' shared epilogue alone
-(``csrc/sampler.cuh``), on given state planes.
+(``csrc/sampler.cuh``), on given state planes.  :class:`NFTSteps` is a
+port-only kernel with no Pallas counterpart: the three-point NFT step's
+bookkeeping around the probes (``csrc/nft_step.cu``), one launch a step of
+``optim/nft.py::_nft_steps`` on the card.
 
 The kernels live in ``queasars_tpu_torch/csrc/slot_kernels.cu``; its header
 says how each one is laid out on the H100.  One circuit engine runs under
@@ -58,6 +61,7 @@ launch_counts: dict[str, int] = {
     "population_probs": 0,
     "sampled_shot_indices": 0,
     "sample_planes": 0,
+    "nft_step": 0,
 }
 
 #: the engine's largest size (in-state indices are 32-bit)
@@ -438,3 +442,71 @@ def sampled_shot_indices(
     lib.check(status, "qt_sampled_shot_indices")
     launch_counts["sampled_shot_indices"] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# nft_step: the three-point NFT step's bookkeeping (port-only)
+# ---------------------------------------------------------------------------
+
+
+class NFTSteps:
+    """One ``_nft_steps`` call's three-point steps on the card, one launch of
+    ``qt_nft_step`` (``csrc/nft_step.cu``) a step.
+
+    Its plain version is ``optim/nft.py::_nft_steps_torch``, the PyTorch
+    loop the CPU runs, whose bits it keeps.  :attr:`angles` is a copy of the
+    given angles that the steps move in place; :attr:`plus` and
+    :attr:`minus` hold the current step's probes, each a copy of
+    :attr:`angles` with the step's coordinate at +-pi/2; :attr:`z` is the
+    recycled z0.  The constructor's launch writes the copy and step 0's
+    probes; :meth:`step` takes step k's three energies, moves the angles and
+    z and writes step k+1's probes.  Each launch makes the angles' card
+    current and goes to that card's current stream, where the objective's
+    kernels put the energies, whichever card the caller has current.
+    """
+
+    def __init__(self, angles, coords, n_free, active):
+        if not _on_cuda(angles, coords, n_free, active):
+            raise ValueError("NFTSteps runs on the card; the CPU takes _nft_steps_torch")
+        angles = angles.contiguous()
+        pop, n_layers, n_qubits, _ = angles.shape
+        _expect(angles, "angles", torch.float32, (pop, n_layers, n_qubits, 3))
+        if coords.dim() != 3 or coords.shape[0] != pop or coords.shape[2] != 3:
+            raise ValueError(f"coords must be [{pop}, K, 3], got {tuple(coords.shape)}")
+        self._coords = coords.to(torch.int32).contiguous()
+        self._n_free = n_free.to(torch.int32).contiguous()
+        self._active = active.to(torch.bool).contiguous()
+        _expect(self._n_free, "n_free", torch.int32, (pop,))
+        _expect(self._active, "active", torch.bool, (pop,))
+        self.angles = torch.empty_like(angles)
+        self.plus = torch.empty_like(angles)
+        self.minus = torch.empty_like(angles)
+        self.z = torch.empty(pop, dtype=torch.float32, device=angles.device)
+        self._sizes = (pop, n_layers * n_qubits * 3, coords.shape[1], n_qubits)
+        self._device = angles.device
+        self._launch(angles, None, None, None, -1, 0)
+
+    def step(self, k: int, z0, z1, z3, probe_next: bool) -> torch.Tensor:
+        """Step ``k``'s update from its energies ``z0`` (the reset probe's or
+        the recycled :attr:`z`), ``z1`` (the +pi/2 probe's) and ``z3``
+        (the -pi/2 probe's), each [P] float32; with ``probe_next``, step
+        k+1's probes.  Returns :attr:`z`."""
+        z0, z1, z3 = z0.contiguous(), z1.contiguous(), z3.contiguous()
+        _on_cuda(self.angles, z0, z1, z3)
+        for z, name in ((z0, "z0"), (z1, "z1"), (z3, "z3")):
+            _expect(z, name, torch.float32, (self._sizes[0],))
+        self._launch(self.angles, z0, z1, z3, k, k + 1 if probe_next else -1)
+        return self.z
+
+    def _launch(self, src, z0, z1, z3, update_k, probe_k):
+        lib = _library()
+        with torch.cuda.device(self._device):
+            status = lib.load().qt_nft_step(
+                src.data_ptr(), self.angles.data_ptr(), self.plus.data_ptr(),
+                self.minus.data_ptr(), self.z.data_ptr(), _ptr(z0), _ptr(z1), _ptr(z3),
+                self._coords.data_ptr(), self._n_free.data_ptr(), self._active.data_ptr(),
+                *self._sizes, update_k, probe_k,
+                torch.cuda.current_stream(self._device).cuda_stream,
+            )
+        lib.check(status, "qt_nft_step")
+        launch_counts["nft_step"] += 1

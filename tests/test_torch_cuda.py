@@ -1624,3 +1624,159 @@ def test_traced_solve_starts_each_slot_kernel_after_an_evaluator_span(
                                                           "sweep_pass"}
     for kernel in kernels:
         assert starts[0] <= kernel["ts"] <= solve_span["ts"] + solve_span["dur"], kernel["name"]
+
+
+def _nft_step_problem():
+    """n=14, P=6, two slots (the last two real layers): individual 0 sits
+    out (inactive), individual 1 is active with no free coordinate in slot
+    0, and some free counts do not divide 40."""
+    packed = _spsa_problem()
+    pop = packed.n_individuals
+    real = packed.layer_mask.sum(axis=1)
+    slots = 2
+    coords = np.zeros((pop, slots, 3 * packed.n_qubits, 3), np.int32)
+    n_free = np.zeros((pop, slots), np.int32)
+    slot_layers = np.full((pop, slots), packed.max_layers, np.int32)
+    for i in range(pop):
+        for s in range(min(slots, real[i])):
+            layer = real[i] - 1 - s
+            c = packed.layer_param_coordinates(i, layer)
+            coords[i, s, : len(c)], n_free[i, s], slot_layers[i, s] = c, len(c), layer
+    n_free[1, 0] = 0
+    active = np.ones((pop, slots), bool)
+    active[0] = False
+    assert any(40 % f for f in n_free[2:, 0])
+    return packed, coords, n_free, active, slot_layers, real
+
+
+def _nft_search(path):
+    """One NFT search (maxiter 40, reset at 32) on the card on the slot
+    route: ``minimize_slots``, ``minimize`` with ``last_layer`` (the prefix
+    transform's steps) or without it (full circuits)."""
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+
+    packed, coords, n_free, active, slot_layers, real = _nft_step_problem()
+    evaluator = StatevectorExpectationEvaluator(_diagonal_operator(14, 12, seed=5), device="cuda")
+    optimizer = BatchedNFT(NFTConfig(maxiter=40, reset_interval=32, in_kernel_sweep=False))
+    if path == "slots":
+        return optimizer.minimize_slots(evaluator, packed, coords, n_free, active, slot_layers)
+    last = (real - 1).astype(np.int32) if path == "prefix" else None
+    return optimizer.minimize(evaluator, packed, coords[:, 0], n_free[:, 0], active[:, 0],
+                              last_layer=last)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["slots", "prefix", "full"])
+def test_nft_searches_on_the_card_take_the_step_kernel_with_the_loops_bits(
+    cuda_device, path, monkeypatch
+):
+    """Each caller of ``_nft_steps`` on the card launches the step kernel
+    maxiter + 1 times a call, and its angles and energies equal those of
+    the PyTorch step loop run on the card, bit for bit."""
+    from queasars_tpu_torch.optim import nft
+
+    monkeypatch.setenv("QUEASARS_MXU", "0")
+    sk.reset_launch_counts()
+    kernel = _nft_search(path)
+    calls = 2 if path == "slots" else 1
+    assert sk.launch_counts["nft_step"] == calls * 41
+    monkeypatch.setattr(nft, "_nft_steps", nft._nft_steps_torch)
+    sk.reset_launch_counts()
+    loop = _nft_search(path)
+    assert sk.launch_counts["nft_step"] == 0
+    packed = _nft_step_problem()[0]
+    assert np.array_equal(kernel[0], loop[0]) and np.array_equal(kernel[1], loop[1])
+    assert kernel[2] == loop[2]
+    assert np.array_equal(kernel[0][0], packed.angles[0])
+    assert not np.array_equal(kernel[0][2:], packed.angles[2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["slot", "fold"])
+@pytest.mark.parametrize("maxiter, reset", [(40, 32), (7, 3), (1, 1)])
+def test_nft_step_kernel_equals_the_pytorch_loop_bit_for_bit(
+    cuda_device, route, maxiter, reset, monkeypatch
+):
+    """``_nft_steps`` on the card (the step kernel) against
+    ``_nft_steps_torch`` on the card over full-circuit energies at n=14:
+    equal angles and z0, maxiter + 1 launches, the inactive individual and
+    the one without a free coordinate unmoved."""
+    from queasars_tpu_torch.optim import BatchedNFT, nft
+    from queasars_tpu_torch.optim.objective import objective_operands
+    from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
+
+    monkeypatch.setenv("QUEASARS_MXU", "0" if route == "slot" else "1")
+    packed, coords, n_free, active, _, _ = _nft_step_problem()
+    evaluator = StatevectorExpectationEvaluator(_diagonal_operator(14, 12, seed=5), device="cuda")
+    gt, ctrl, ang, lm = packed_tensors(packed, device="cuda")
+    objective = BatchedNFT()._objective(objective_operands(evaluator), 14, gt, ctrl, lm, None)
+    args = (torch.as_tensor(coords[:, 0], dtype=torch.long, device="cuda"),
+            torch.as_tensor(n_free[:, 0], device="cuda"),
+            torch.as_tensor(active[:, 0], device="cuda"), maxiter, reset)
+    sk.reset_launch_counts()
+    angles, z0 = nft._nft_steps(objective, ang, *args)
+    assert sk.launch_counts["nft_step"] == maxiter + 1
+    ref_angles, ref_z0 = nft._nft_steps_torch(objective, ang, *args)
+    assert torch.equal(angles, ref_angles) and torch.equal(z0, ref_z0)
+    assert torch.equal(angles[:2], ang[:2]) and not torch.equal(angles[2:], ang[2:])
+
+
+@pytest.mark.cuda
+def test_nft_step_kernel_runs_on_the_angles_card_whichever_card_is_current(cuda_device):
+    """Angles on the last card while the first is current (the same card on
+    a one-card machine): the step kernel launches on the angles' card and
+    stream, after the objective's work there, and keeps the PyTorch loop's
+    bits."""
+    from queasars_tpu_torch.optim import nft
+
+    card = torch.device("cuda", torch.cuda.device_count() - 1)
+    packed, coords, n_free, active, _, _ = _nft_step_problem()
+    ang = torch.as_tensor(packed.angles, device=card)
+    weights = torch.linspace(0.5, 1.5, ang[0].numel(), device=card).reshape(ang.shape[1:])
+
+    def objective(a, keys):
+        return (torch.cos(a) * weights).sum(dim=(1, 2, 3)) + torch.sin(2 * a).mean(dim=(1, 2, 3))
+
+    args = (torch.as_tensor(coords[:, 0], dtype=torch.long, device=card),
+            torch.as_tensor(n_free[:, 0], device=card),
+            torch.as_tensor(active[:, 0], device=card), 40, 32)
+    with torch.cuda.device(0):
+        sk.reset_launch_counts()
+        angles, z0 = nft._nft_steps(objective, ang, *args)
+        assert sk.launch_counts["nft_step"] == 41
+        ref_angles, ref_z0 = nft._nft_steps_torch(objective, ang, *args)
+    assert angles.device == card and z0.device == card
+    assert torch.equal(angles, ref_angles) and torch.equal(z0, ref_z0)
+    assert torch.equal(angles[:2], ang[:2]) and not torch.equal(angles[2:], ang[2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["slots", "full"])
+def test_sharded_nft_search_over_the_cards_equals_one_card(cuda_device, path):
+    """The sharded evaluator's NFT searches (``nft_minimize_slots`` and
+    ``nft_minimize``' full-circuit steps) on a 2 x 2 mesh over the machine's
+    cards, where row 1's home is not the current card, equal the same
+    mesh's on one card bit for bit."""
+    from queasars_tpu_torch.optim import BatchedNFT, NFTConfig
+    from queasars_tpu_torch.parallel.amplitude import pop_amp_mesh
+    from queasars_tpu_torch.sim.sharded_evaluator import AmplitudeShardedExpectationEvaluator
+
+    packed, coords, n_free, active, slot_layers, _ = _nft_step_problem()
+    operator = _diagonal_operator(14, 12, seed=5)
+    optimizer = BatchedNFT(NFTConfig(maxiter=40, reset_interval=32))
+    cards = torch.cuda.device_count()
+    results = []
+    for devices in (["cuda:0"] * 4, [f"cuda:{i % cards}" for i in range(4)]):
+        evaluator = AmplitudeShardedExpectationEvaluator(operator, pop_amp_mesh(2, 2, devices))
+        sk.reset_launch_counts()
+        if path == "slots":
+            results.append(optimizer.minimize_slots(evaluator, packed, coords, n_free, active,
+                                                    slot_layers))
+        else:
+            results.append(optimizer.minimize(evaluator, packed, coords[:, 0], n_free[:, 0],
+                                              active[:, 0]))
+        assert sk.launch_counts["nft_step"] == (2 if path == "slots" else 1) * 2 * 41
+    one, spread = results
+    assert np.array_equal(one[0], spread[0]) and np.array_equal(one[1], spread[1])
+    assert one[2] == spread[2]

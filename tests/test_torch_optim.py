@@ -145,3 +145,44 @@ def test_full_circuit_search_without_prefix_matches_jax():
         ref.evaluate_packed(q, angles=a), ref.evaluate_packed(q, angles=a_ref), atol=tol
     )
     np.testing.assert_allclose(e, e_ref, atol=tol)
+
+
+def test_nft_steps_on_the_cpu_take_the_pytorch_loop_and_no_step_kernel(monkeypatch):
+    """On the CPU, ``_nft_steps`` runs the PyTorch loop for three- and
+    five-point steps (one call of ``_nft_steps_torch`` each, the same bits)
+    and launches no step kernel; the step kernel's wrapper refuses CPU
+    tensors."""
+    import torch
+
+    from queasars_tpu_torch.optim import nft
+    from queasars_tpu_torch.optim.objective import objective_operands
+    from queasars_tpu_torch.sim import slot_kernels
+    from queasars_tpu_torch.sim.evaluators import packed_tensors
+
+    op, _ = _operators(7, seed=9)
+    p, _ = _problem(7, seed=2)
+    evaluator = StatevectorExpectationEvaluator(op, device="cpu")
+    gt, ctrl, ang, lm = packed_tensors(p, device="cpu")
+    objective = BatchedNFT()._objective(objective_operands(evaluator), 7, gt, ctrl, lm, None)
+    coords = torch.as_tensor(np.stack([p.param_coordinates(i)[:6] for i in range(p.n_individuals)]),
+                             dtype=torch.long)
+    n_free = torch.tensor([6, 5, 0, 6, 4], dtype=torch.int32)
+    active = torch.tensor([True, True, True, False, True])
+    calls = []
+    loop = nft._nft_steps_torch
+
+    def spy(*args, **kwargs):
+        calls.append(kwargs.get("five_point", args[8] if len(args) > 8 else False))
+        return loop(*args, **kwargs)
+
+    monkeypatch.setattr(nft, "_nft_steps_torch", spy)
+    slot_kernels.reset_launch_counts()
+    for five_point in (False, True):
+        out, z0 = nft._nft_steps(objective, ang, coords, n_free, active, 9, 4, None, five_point)
+        ref, z_ref = loop(objective, ang, coords, n_free, active, 9, 4, None, five_point)
+        assert torch.equal(out, ref) and torch.equal(z0, z_ref)
+        assert torch.equal(out[2:4], ang[2:4]) and not torch.equal(out, ang)
+    assert calls == [False, True]
+    assert slot_kernels.launch_counts["nft_step"] == 0
+    with pytest.raises(ValueError, match="runs on the card"):
+        slot_kernels.NFTSteps(ang, coords, n_free, active)
