@@ -71,11 +71,7 @@ import torch
 
 from queasars_tpu_torch.genome.packing import PackedPopulation
 from queasars_tpu_torch.optim.nft_math import nft_three_point_update
-from queasars_tpu_torch.optim.objective import (
-    mxu_fold_enabled,
-    objective_operands,
-    population_energies,
-)
+from queasars_tpu_torch.optim.objective import objective_operands, population_energies
 from queasars_tpu_torch.optim.prefix import (
     build_prefix_transform,
     cache_enabled,
@@ -85,10 +81,7 @@ from queasars_tpu_torch.optim.prefix import (
     prefix_mask,
     simulate_prefix_states,
 )
-from queasars_tpu_torch.optim.sweep_kernel_launch import (
-    nft_layer_sweep_folded_launch,
-    nft_layer_sweep_launch,
-)
+from queasars_tpu_torch.optim.sweep_kernel_launch import nft_layer_sweep_launch
 from queasars_tpu_torch.parallel.mesh import operand_device, run_batched
 from queasars_tpu_torch.sim import slot_kernels
 from queasars_tpu_torch.sim.evaluators import expand_initial, packed_tensors
@@ -394,13 +387,8 @@ class BatchedNFT:
         if self._in_kernel_sweep_applies(operands):
             rows = torch.arange(pop, device=device)
             ll = torch.as_tensor(last_layer, dtype=torch.long, device=device)
-            launch = (
-                nft_layer_sweep_folded_launch
-                if mxu_fold_enabled(None, n, path="sweep", device=device)
-                else nft_layer_sweep_launch
-            )
             out = ang.clone()
-            out[rows, ll], energies = launch(
+            out[rows, ll], energies = nft_layer_sweep_launch(
                 gt, ctrl, ang, lm, ll,
                 coords_t[:, :, 1:3].to(torch.int32).contiguous(), n_free_t, active_t,
                 operands["table"], n_qubits=n, maxiter=cfg.maxiter,

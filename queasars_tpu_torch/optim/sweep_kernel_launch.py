@@ -1,10 +1,12 @@
 """Launchers for the last-layer NFT sweep.
 
 Counterpart of ``queasars_tpu/optim/sweep_kernel_launch.py``.  Two variants
-share the contract:
+share the contract, and :func:`nft_layer_sweep_launch` takes the one
+:func:`~queasars_tpu_torch.optim.objective.mxu_fold_enabled` picks (path
+``"sweep"``), as the objective's entry points do:
 
-- slot (:func:`nft_layer_sweep_launch`): prefix states from the slot states
-  kernel, then the whole ``maxiter`` sweep on the slot sweep kernel;
+- slot: prefix states from the slot states kernel, then the whole
+  ``maxiter`` sweep on the slot sweep kernel;
 - folded (:func:`nft_layer_sweep_folded_launch`): the prefix's fold pipeline
   (absorbed phases on) through the folded states kernel, then the folded
   sweep, which applies the swept layer as two kron layers and a phase pass
@@ -14,17 +16,18 @@ On the card each sweep first reads the steps at which some individual's
 probed qubit changes back to the host (``slot_kernels.sweep_transitions``,
 one wait), and the folded variant also copies the swept layer's gate
 structure to the host to build the sweep metadata there, as the reference
-does.  The step loops only enqueue launches.
+does (``wait.fold_sweep_metadata``).  The step loops only enqueue launches.
 """
 
 from __future__ import annotations
 
 import torch
 
+from queasars_tpu_torch.optim.objective import mxu_fold_enabled
 from queasars_tpu_torch.optim.prefix import prefix_mask
 from queasars_tpu_torch.sim import fold_kernels, slot_kernels
 from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
-from queasars_tpu_torch.utils.profiling import spanned
+from queasars_tpu_torch.utils.profiling import span, spanned
 
 
 def _swept_layer(tensors, last_layer):
@@ -42,7 +45,14 @@ def nft_layer_sweep_launch(
     """Device tensors in (genome [P, L, n] tensors, ``last_layer`` [P]
     long, ``coords_qa`` [P, K, 2] int32, ``n_free`` [P] int32, ``active``
     [P] bool, ``table`` [2^n]); returns (optimized layer angles [P, n, 3],
-    final energies [P])."""
+    final energies [P]) from the variant
+    :func:`~queasars_tpu_torch.optim.objective.mxu_fold_enabled` picks."""
+    if mxu_fold_enabled(None, n_qubits, "sweep", angles.device):
+        return nft_layer_sweep_folded_launch(
+            gate_types, controls, angles, layer_mask, last_layer, coords_qa, n_free, active,
+            table, n_qubits=n_qubits, maxiter=maxiter, reset_interval=reset_interval,
+            initial_state=initial_state,
+        )
     prefix = slot_kernels.population_states(
         gate_types, controls, angles, prefix_mask(layer_mask, last_layer), n_qubits,
         initial_state,
@@ -64,7 +74,9 @@ def nft_layer_sweep_folded_launch(
     the sweep: :func:`~queasars_tpu_torch.sim.fold_kernels.fold_sweep_metadata`
     computes them on the host from that layer's gate structure."""
     gate1, ctrl1, angles1 = _swept_layer((gate_types, controls, angles), last_layer)
-    meta = fold_kernels.fold_sweep_metadata(gate1.cpu().numpy(), ctrl1.cpu().numpy(), n_qubits)
+    with span("wait.fold_sweep_metadata"):
+        gate1_host, ctrl1_host = gate1.cpu().numpy(), ctrl1.cpu().numpy()
+    meta = fold_kernels.fold_sweep_metadata(gate1_host, ctrl1_host, n_qubits)
     meta = [torch.as_tensor(m, device=angles.device) for m in meta]
     pipeline = build_fold_pipeline(
         gate_types, controls, angles, prefix_mask(layer_mask, last_layer), n_qubits,

@@ -26,18 +26,28 @@ builds the pipeline tensors on the tensors' device in
 real float32 arithmetic and holds two plain appliers: a per-qubit one
 (float32, any size; the plain version behind the kernels) and a dense kron
 oracle (complex128, test sizes only).
+
+Every :func:`build_fold_pipeline` call is span ``fold.build`` inside a
+recording, and is counted in ``build_counts`` (calls and host nanoseconds)
+whether or not one is open.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
 
 from queasars_tpu_torch.sim.statevector import GATE_CROT, GATE_ROT
 from queasars_tpu_torch.utils.batch_invariant import atan2
+from queasars_tpu_torch.utils.profiling import spanned
 
 LANE_BITS = 7
+
+#: :func:`build_fold_pipeline` calls and the host nanoseconds they took (two
+#: clock reads a call; the build enqueues its operations and waits for none)
+build_counts: dict[str, int] = {"builds": 0, "host_ns": 0}
 
 
 class FoldPipeline(NamedTuple):
@@ -178,6 +188,7 @@ def _group_activity(slot_active: torch.Tensor, n_qubits: int) -> torch.Tensor:
     ).to(torch.int32)
 
 
+@spanned("fold.build")
 def build_fold_pipeline(
     gate_types: torch.Tensor,
     controls: torch.Tensor,
@@ -199,6 +210,7 @@ def build_fold_pipeline(
     pop, n_layers, n = gate_types.shape
     if n != n_qubits:
         raise ValueError("gate_types last axis must equal n_qubits")
+    start = time.perf_counter_ns()
     device = angles.device
     mask = layer_mask.bool()
     gate_types = gate_types.to(torch.int32)
@@ -253,6 +265,8 @@ def build_fold_pipeline(
         absorbed = torch.zeros_like(is_crot)
     ctrl, tgt, ph_sorted, count = compact(is_crot & ~absorbed)
     a_ctrl, a_tgt, a_ph, a_count = compact(absorbed)
+    build_counts["builds"] += 1
+    build_counts["host_ns"] += time.perf_counter_ns() - start
     return FoldPipeline(
         factors=factors, diag_ctrl=ctrl, diag_tgt=tgt, diag_phase=ph_sorted,
         diag_count=count, group_active=group_active, abs_ctrl=a_ctrl, abs_tgt=a_tgt,

@@ -69,7 +69,7 @@ from queasars_tpu_torch.solver.termination_criteria import (
 )
 from queasars_tpu_torch.utils import prng
 from queasars_tpu_torch.utils.bitstring_evaluation import BitstringEvaluator
-from queasars_tpu_torch.utils.profiling import span, spanned
+from queasars_tpu_torch.utils.profiling import solve_entry, span, spanned
 
 ListOrDict = Union[list, dict, None]
 
@@ -224,7 +224,7 @@ class EvolvingAnsatzMinimumEigensolver:
             operator=operator, aux_operators=aux_operators, initial_state=None
         )
 
-    @spanned("solve")
+    @solve_entry
     def compute_minimum_eigenvalue_with_initial_state(
         self,
         operator: PauliSum,
@@ -344,7 +344,7 @@ class EvolvingAnsatzMinimumEigensolver:
                 aux_evaluators = {k: build_aux(op) for k, op in aux_operators.items()}
         return self._solve(evaluator, aux_evaluators, None)
 
-    @spanned("solve")
+    @solve_entry
     def compute_minimum_function_value(
         self,
         operator: BitstringEvaluator,

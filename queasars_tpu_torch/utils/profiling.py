@@ -25,6 +25,8 @@ rest of the port's observability:
   states``, ``evaluator.nft_layer_   ``optim/sweep_kernel_launch.py``)
   sweep_launch``
   ``evaluator.evaluate_packed``      an operator evaluator's ``evaluate_packed``
+  ``fold.build``                     each kron-fold pipeline built on the host
+                                     (``sim/fold_pipeline.py``)
   ``wait.<site>``                    the host blocked on a device-to-host copy
   ``encode``                         the JSSP encoder's set-up and its
                                      Hamiltonian
@@ -33,6 +35,11 @@ rest of the port's observability:
 - :func:`recording` turns recording on for its body and returns the
   :class:`Recording`.  Outside one, :func:`span` returns one shared no-op
   context: it reads no clock, allocates nothing and takes no lock.
+- :func:`counters` reads the counts the port keeps whether or not a
+  recording is open (the kernel modules' ``launch_counts``, the fold
+  pipeline's ``build_counts``); the solvers' entry points
+  (:func:`solve_entry`) keep them at each solve's start, so
+  :func:`counts_since` gives the counts of the last solves.
 - :func:`trace` captures the card's kernels, copies and fills with
   ``torch.profiler`` (no host operator events) and writes them with the
   spans into one Chrome trace, on the profiler's clock (open it in
@@ -43,6 +50,7 @@ rest of the port's observability:
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import heapq
@@ -63,6 +71,10 @@ LAUNCH_COUNTERS = tuple(
     f"queasars_tpu_torch.sim.{name}"
     for name in ("slot_kernels", "fold_kernels", "compact_kernels", "shard_kernels")
 )
+#: the module whose ``build_counts`` :func:`counters` reads
+BUILD_COUNTER = "queasars_tpu_torch.sim.fold_pipeline"
+#: :func:`counters` at the start of each solve, newest last
+solve_starts: collections.deque = collections.deque(maxlen=1024)
 
 #: the Chrome trace categories of the card's kernels, copies and fills
 DEVICE_EVENTS = frozenset({"kernel", "gpu_memcpy", "gpu_memset"})
@@ -98,6 +110,26 @@ def _launch_snapshot() -> dict[str, int]:
             prefix = name.rsplit(".", 1)[1]
             counts.update((f"{prefix}.{row}", n) for row, n in module.launch_counts.items())
     return counts
+
+
+def counters() -> dict[str, int]:
+    """The launch counts (``<module>.<row>``) and the fold pipeline's build
+    counts (``fold_pipeline.<name>``) of the loaded modules."""
+    counts = _launch_snapshot()
+    module = sys.modules.get(BUILD_COUNTER)
+    if module is not None:
+        counts.update((f"fold_pipeline.{name}", n) for name, n in module.build_counts.items())
+    return counts
+
+
+def counts_since(solves: int) -> Optional[dict[str, int]]:
+    """How far each of :func:`counters` grew from the start of the
+    ``solves``-th last solve to now, or None where fewer solves were
+    kept."""
+    if solves < 1 or solves > len(solve_starts):
+        return None
+    before = solve_starts[-solves]
+    return {name: n - before.get(name, 0) for name, n in counters().items()}
 
 
 class Recording:
@@ -255,6 +287,20 @@ def spanned(name: str):
         return wrapper
 
     return decorate
+
+
+def solve_entry(function):
+    """Decorator of the solvers' entry points: each call runs inside
+    ``span("solve")`` and first appends :func:`counters` to
+    :data:`solve_starts`, recording or not."""
+    recorded = spanned("solve")(function)
+
+    @functools.wraps(function)
+    def wrapper(*args, **kwargs):
+        solve_starts.append(counters())
+        return recorded(*args, **kwargs)
+
+    return wrapper
 
 
 @contextlib.contextmanager

@@ -4,7 +4,11 @@ Off, :func:`span` records nothing; on, spans nest per thread with their
 parents and request ids; an 8-qubit EVQE solve records the spans of its
 layers (one ``nft.step`` per NFT step the searches ran, one ``operator.*``
 per ``apply_operator``, the launch counts per solve) and gives the same
-bits with recording on as off.
+bits with recording on as off.  The kron-fold route's spans (``fold.build``
+per pipeline built, ``wait.fold_sweep_metadata`` per folded sweep) and the
+counts kept at each solve's start are read on the CPU with the route forced
+(``fold_kernels.fold_supported`` patched).  Tests marked ``cuda`` run on a
+card: ``python -m pytest --noconftest tests/test_torch_tracing.py -m cuda``.
 """
 
 from __future__ import annotations
@@ -14,12 +18,14 @@ from collections import Counter
 
 import numpy as np
 import pytest
+import torch
 
 from queasars_tpu_torch.genome import PackedPopulation
 from queasars_tpu_torch.optim import BatchedNFT, NFTConfig, nft
 from queasars_tpu_torch.problems.jssp import JSSPDomainWallHamiltonianEncoder
 from queasars_tpu_torch.problems.jssp.random_instances import random_job_shop_scheduling_instance
-from queasars_tpu_torch.sim import slot_kernels
+from queasars_tpu_torch.optim import sweep_kernel_launch
+from queasars_tpu_torch.sim import fold_kernels, fold_pipeline, slot_kernels
 from queasars_tpu_torch.sim.evaluators import StatevectorExpectationEvaluator
 from queasars_tpu_torch.solver import (
     ConfiguredEstimator,
@@ -246,3 +252,129 @@ def test_launch_counts_are_read_per_solve(monkeypatch):
     assert set(recorded.launches[last].values()) == {0}
     assert set(recorded.launches[last]) >= {f"slot_kernels.{row}"
                                             for row in slot_kernels.launch_counts}
+
+
+@pytest.fixture
+def fold_route(monkeypatch):
+    monkeypatch.delenv("QUEASARS_MXU", raising=False)
+    monkeypatch.setattr(
+        fold_kernels, "fold_supported",
+        lambda n, device, path="exact": fold_pipeline.LANE_BITS <= n <= fold_kernels._CAPS[path])
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _genome(n=8, pop=3, layers=3, seed=3, device="cpu"):
+    from queasars_tpu_torch.genome import EVQEPopulation
+    from queasars_tpu_torch.sim.evaluators import packed_tensors
+
+    population = EVQEPopulation.random_population(n, layers, pop, True, random_seed=seed)
+    packed = PackedPopulation.pack(list(population.individuals), min_layers=layers + 1)
+    return packed_tensors(packed, device=device)
+
+
+def test_each_fold_pipeline_build_is_one_span_and_is_counted_recording_or_not(monkeypatch):
+    monkeypatch.setattr(fold_pipeline, "build_counts", {"builds": 0, "host_ns": 0})
+    genome = _genome()
+    fold_pipeline.build_fold_pipeline(*genome, 8, absorb_diag=True)
+    assert fold_pipeline.build_counts["builds"] == 1
+    with recording() as recorded:
+        for absorb in (False, True, True):
+            fold_pipeline.build_fold_pipeline(*genome, 8, absorb_diag=absorb)
+    assert _by_name(recorded) == {"fold.build": 3}
+    assert fold_pipeline.build_counts["builds"] == 4
+    assert fold_pipeline.build_counts["host_ns"] > 0
+
+
+def _sweep_arguments(genome, n=8, device="cpu"):
+    gate_types, controls, angles, layer_mask = genome
+    pop = gate_types.shape[0]
+    last = layer_mask.sum(dim=1) - 1
+    rows = torch.arange(pop, device=device)
+    layer = gate_types[rows, last]
+    coords = torch.stack([torch.arange(n, device=device).repeat(pop, 1),
+                          torch.zeros(pop, n, dtype=torch.long, device=device)], dim=-1)
+    n_free = torch.full((pop,), n, dtype=torch.int32, device=device)
+    active = (layer != 0).any(dim=1)
+    table = torch.linspace(-2.0, 3.0, 1 << n, device=device)
+    return ((gate_types, controls, angles, layer_mask, last, coords.to(torch.int32), n_free,
+             active, table),
+            dict(n_qubits=n, maxiter=6, reset_interval=3,
+                 initial_state=None))
+
+
+def test_a_folded_sweep_opens_one_metadata_wait_under_the_sweep_entry_point(
+        monkeypatch, fold_route):
+    args, kwargs = _sweep_arguments(_genome())
+    with recording() as recorded:
+        folded = sweep_kernel_launch.nft_layer_sweep_launch(*args, **kwargs)
+    names = [s[0] for s in recorded.spans]
+    assert names.count("evaluator.nft_layer_sweep_launch") == 1
+    assert names.count("wait.fold_sweep_metadata") == 1
+    assert names.count("fold.build") >= 1
+    direct = sweep_kernel_launch.nft_layer_sweep_folded_launch(*args, **kwargs)
+    monkeypatch.setenv("QUEASARS_MXU", "0")
+    with recording() as recorded:
+        slot = sweep_kernel_launch.nft_layer_sweep_launch(*args, **kwargs)
+    assert "wait.fold_sweep_metadata" not in {s[0] for s in recorded.spans}
+    for a, b in zip(folded, direct, strict=True):
+        assert torch.equal(a, b)
+    assert torch.allclose(folded[1], slot[1], atol=1e-5)
+
+
+def test_each_solve_keeps_the_counts_at_its_start(monkeypatch, fold_route):
+    monkeypatch.setattr(profiling, "solve_starts", profiling.collections.deque(maxlen=4))
+    assert profiling.counts_since(1) is None
+    builds = []
+    for seed in (5, 6):
+        before = fold_pipeline.build_counts["builds"]
+        _solver(seed).compute_minimum_eigenvalue(_hamiltonian())
+        builds.append(fold_pipeline.build_counts["builds"] - before)
+    assert len(profiling.solve_starts) == 2 and min(builds) > 0
+    assert profiling.counts_since(1)["fold_pipeline.builds"] == builds[1]
+    assert profiling.counts_since(2)["fold_pipeline.builds"] == sum(builds)
+    assert profiling.counts_since(3) is None
+    assert {row for row in profiling.counts_since(2) if row.startswith("fold_kernels.")} == {
+        f"fold_kernels.{row}" for row in fold_kernels.launch_counts}
+
+
+@pytest.mark.cuda
+def test_a_folded_sweep_on_the_card_opens_one_metadata_wait(cuda_device, monkeypatch):
+    monkeypatch.delenv("QUEASARS_MXU", raising=False)
+    n = 14
+    args, kwargs = _sweep_arguments(_genome(n=n, device=cuda_device), n=n, device=cuda_device)
+    before = fold_kernels.launch_counts["nft_layer_sweep_folded"]
+    with recording() as recorded:
+        sweep_kernel_launch.nft_layer_sweep_launch(*args, **kwargs)
+    names = Counter(s[0] for s in recorded.spans)
+    assert names["wait.fold_sweep_metadata"] == 1
+    assert names["evaluator.nft_layer_sweep_launch"] == 1
+    assert fold_kernels.launch_counts["nft_layer_sweep_folded"] == before + 1
+
+
+@pytest.mark.cuda
+def test_a_default_route_config_four_solve_launches_fold_kernels_within_the_limits(
+        cuda_device, monkeypatch):
+    from benchmark import check, program, workload
+
+    monkeypatch.delenv("QUEASARS_MXU", raising=False)
+    config = workload.load("configs", "jssp20-exact-fold")
+    family = config["instance"]
+    instance_seed, instance = workload.instances_with_qubits(family, family["first_seed"], 1)[0]
+    hamiltonian = program.encode(instance, family["makespan_limit"])
+    assert hamiltonian.n_qubits == 20
+    result = program.solver(config["solver"], 2**31 + 17).compute_minimum_eigenvalue(hamiltonian)
+    counts = profiling.counts_since(1)
+    assert sum(n for row, n in counts.items() if row.startswith("fold_kernels.")) > 0
+    assert counts["fold_kernels.nft_layer_sweep_folded"] > 0
+    assert counts["fold_pipeline.builds"] > 0
+    answer = program.solve_answer(result, hamiltonian, 8)
+    gaps = check.solve_gaps(answer, instance_seed, instance,
+                            check.Reference(family["makespan_limit"], "cuda"))
+    ok, shown = check.verdict(gaps, config["limits"])
+    assert ok, shown
