@@ -22,7 +22,10 @@ with elapsed seconds:
 4. fold kernels at the same shapes: every fold kernel against its plain
    version, the fold energies against the slot energies (the two routes
    compute one function), equal bits from equal inputs, timings, the
-   folded sweep's design bytes and GB/s (row 8);
+   folded sweep's design bytes and GB/s (row 8); then the fold pipeline's
+   build kernel (row F0) against the PyTorch build on the card (integer
+   fields equal, float fields within 2 ulps), and the host microseconds
+   to issue a build and the device microseconds of a launch of each;
 5. sampled kernels at the same shapes with 512 shots (threefry uniforms,
    ``queasars_tpu_torch/utils/prng.py``), from |0...0> and from prefix
    states: each against its plain version and the fold sampler against the
@@ -313,6 +316,7 @@ SLOT_SOURCE = "queasars_tpu_torch/csrc/slot_kernels.cu"
 FOLD_SOURCE = "queasars_tpu_torch/csrc/fold_kernels.cu"
 COMPACT_SOURCE = "queasars_tpu_torch/csrc/compact_kernels.cu"
 STEP_SOURCE = "queasars_tpu_torch/csrc/nft_step.cu"
+BUILD_SOURCE = "queasars_tpu_torch/csrc/fold_build.cu"
 #: kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "energies_exact": (SLOT_SOURCE, "queasars_tpu/sim/pallas_kernels.py:367"),
@@ -331,6 +335,8 @@ KERNELS = {
     "compact_energies_exact": (COMPACT_SOURCE, "queasars_tpu/sim/compact_kernels.py:338"),
     "compact_probs": (COMPACT_SOURCE, "queasars_tpu/sim/compact_kernels.py:353"),
     "nft_step": (STEP_SOURCE, "none: the NFT step's bookkeeping (XLA inside the JAX jit)"),
+    "fold_build": (BUILD_SOURCE, "none: build_fold_pipeline's jnp algebra (XLA; "
+                   "queasars_tpu/sim/fold_pipeline.py:207)"),
 }
 #: the compacted-gate kernels, which no solve launches: their launches are
 #: counted over tools/port_compact.py's path (phase 7)
@@ -1041,6 +1047,95 @@ def phase_fold_kernels(w):
     return finish_records(records, bounds)
 
 
+def float_ulps(a, b):
+    """Float32 units in the last place between ``a`` and ``b`` (+0 = -0)."""
+    import torch
+
+    def ordered(x):
+        bits = x.contiguous().view(torch.int32).long()
+        return torch.where(bits < 0, -(bits & 0x7FFFFFFF), bits)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def kernel_device_us(fn, reps: int, name: str) -> float:
+    """Mean device microseconds of the kernels whose name holds ``name``
+    over ``reps`` calls of ``fn``, from the profiler's CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if name in e.key]
+    total = sum(getattr(e, "device_time_total", None) or e.cuda_time_total for e in rows)
+    count = sum(e.count for e in rows)
+    require(count == reps, f"the profiler saw {count} launches of {name}, not {reps}")
+    return total / count
+
+
+def phase_fold_build(w):
+    """The fold pipeline's build kernel (``csrc/fold_build.cu``, row F0) on
+    the slot phase's genomes (P=16, L=6, n=20, absorbed phases) against the
+    PyTorch build on the card: integer fields equal, float fields within 2
+    ulps.  Then each timed: host microseconds to issue a build (no
+    synchronisation inside the loop; the PyTorch build's two constant
+    copies wait for the card), microseconds a build with CUDA events over
+    back-to-back builds, and the kernel's device microseconds a launch."""
+    import torch
+
+    from queasars_tpu_torch.sim import fold_pipeline as fp
+
+    n, reps = N_QUBITS, 200
+    genome = (w.gt, w.ctrl, w.ang, w.mask)
+    before = fp.build_counts["kernel"]
+    kernel = fp.build_fold_pipeline(*genome, n, absorb_diag=True)
+    require(fp.build_counts["kernel"] == before + 1, "the build did not take the build kernel")
+    plain = fp.build_fold_pipeline_plain(*genome, n, absorb_diag=True)
+    worst, differing, max_abs = 0, 0, 0.0
+    for name in fp.FoldPipeline._fields:
+        a, b = getattr(kernel, name), getattr(plain, name)
+        if a.dtype == torch.int32:
+            require(torch.equal(a, b), f"fold build kernel: {name} differs from the PyTorch build")
+            continue
+        gap = float_ulps(a, b)
+        worst, differing = max(worst, int(gap.max())), differing + int((gap > 0).sum())
+        max_abs = max(max_abs, float((a - b).abs().max()))
+    require(worst <= 2, f"fold build kernel: float fields {worst} ulps from the PyTorch build")
+
+    def host_us(build):
+        build()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(reps):
+            build()
+        seconds = time.perf_counter() - start
+        torch.cuda.synchronize()
+        return seconds / reps * 1e6
+
+    def kernel_build():
+        return fp.build_fold_pipeline(*genome, n, absorb_diag=True)
+
+    def plain_build():
+        return fp.build_fold_pipeline_plain(*genome, n, absorb_diag=True)
+
+    moved = (genome_bytes(w.gt, w.mask) + 4 * sum(t.numel() for t in kernel))
+    rec = {"max_abs_err": max_abs, "bound": bound(moved, 0.0),
+           "host_us": host_us(kernel_build), "plain_host_us": host_us(plain_build),
+           "ms": time_ms(kernel_build, reps), "plain_ms": time_ms(plain_build, reps),
+           "device_us": kernel_device_us(kernel_build, reps, "fold_build")}
+    say(f"  fold_build: {rec['host_us']:.1f} us of host a build (PyTorch build "
+        f"{rec['plain_host_us']:.1f} us), {rec['ms'] * 1e3:.1f} us a build back to back "
+        f"(PyTorch {rec['plain_ms'] * 1e3:.1f} us), device {rec['device_us']:.2f} us a launch, "
+        f"bound {rec['bound'][0] * 1e3:.4f} us by {rec['bound'][1]}; float fields within "
+        f"{worst} ulps ({differing} entries not bit-equal, max |diff| {max_abs:.3e}), "
+        "integer fields equal")
+    return {"fold_build": rec}
+
+
 def float64_probs(gt, ctrl, ang, mask, n_qubits, initial=None):
     """Probabilities of the slot engine's circuits in float64 (the plain
     engine's gate passes on float64 planes): the reference that shows how
@@ -1600,19 +1695,25 @@ def tfim20_solver(clock=None):
 
 
 def reset_launch_counts():
-    from queasars_tpu_torch.sim import compact_kernels, fold_kernels, shard_kernels, slot_kernels
+    from queasars_tpu_torch.sim import (
+        compact_kernels, fold_kernels, fold_pipeline, shard_kernels, slot_kernels)
 
     slot_kernels.reset_launch_counts()
     fold_kernels.reset_launch_counts()
     compact_kernels.reset_launch_counts()
     shard_kernels.reset_launch_counts()
+    fold_pipeline.build_counts["kernel"] = 0
 
 
 def launch_counts() -> dict:
-    from queasars_tpu_torch.sim import compact_kernels, fold_kernels, shard_kernels, slot_kernels
+    """Launches per kernel row; ``fold_build`` counts the fold pipeline's
+    builds on the build kernel."""
+    from queasars_tpu_torch.sim import (
+        compact_kernels, fold_kernels, fold_pipeline, shard_kernels, slot_kernels)
 
     return {**slot_kernels.launch_counts, **fold_kernels.launch_counts,
-            **compact_kernels.launch_counts, **shard_kernels.launch_counts}
+            **compact_kernels.launch_counts, **shard_kernels.launch_counts,
+            "fold_build": fold_pipeline.build_counts["kernel"]}
 
 
 def use_route(route: str) -> None:
@@ -1653,8 +1754,9 @@ def phase_solve(route, seed, encoder, hamiltonian, table):
         require(launches[name] > 0, f"kernel {name} was not launched on the {route} route")
     if route == "fold":
         require(launches["nft_layer_sweep"] == 0, "the slot sweep ran on the fold route")
+        require(launches["fold_build"] > 0, "no fold build took the build kernel")
     else:
-        require(not any(launches[name] for name in ROUTE_KERNELS["fold"]),
+        require(not any(launches[name] for name in (*ROUTE_KERNELS["fold"], "fold_build")),
                 "a fold kernel ran on the slot route")
 
     # check 1: the best bitstring's table energy is the Hamiltonian's value
@@ -3942,6 +4044,8 @@ def main() -> int:
         records.update(phase_fold_kernels(workload))
         say("phase fold kernels: all four fold kernels agree with their plain versions "
             "and the slot route")
+        records.update(phase_fold_build(workload))
+        say("phase fold build: the build kernel agrees with the PyTorch build")
         records.update(phase_sampled_kernels(workload))
         say("phase sampled kernels: both sampled kernels agree with their plain versions "
             "and with each other")
@@ -3956,6 +4060,8 @@ def main() -> int:
             require(counts["nft_step"] > 0, f"the NFT step kernel did not run on the {route} route")
             if route == "slot":
                 launches["nft_step"] = counts["nft_step"]
+            else:
+                launches["fold_build"] = counts["fold_build"]
         seed3, encoder3, hamiltonian3 = jssp_with_qubits(3, 3, 5, CONFIG3["qubits"], 1)
         for route, route_kernels in SAMPLER_ROUTE_KERNELS.items():
             counts = phase_sampler_solve(route, seed3, encoder3, hamiltonian3)

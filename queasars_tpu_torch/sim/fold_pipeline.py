@@ -27,27 +27,37 @@ real float32 arithmetic and holds two plain appliers: a per-qubit one
 (float32, any size; the plain version behind the kernels) and a dense kron
 oracle (complex128, test sizes only).
 
-Every :func:`build_fold_pipeline` call is span ``fold.build`` inside a
-recording, and is counted in ``build_counts`` (calls and host nanoseconds)
+On card tensors that want no gradient :func:`build_fold_pipeline` is one
+launch of ``qt_fold_build`` (``csrc/fold_build.cu``), which writes every
+field with no PyTorch operation and no host copy; anywhere else (the CPU,
+and the gradient optimizer's autograd through the fold) it is
+:func:`build_fold_pipeline_plain`, the PyTorch operations the kernel is held
+to.  Every call is span ``fold.build`` inside a recording, and is counted in
+``build_counts`` (calls, host nanoseconds, and the calls the kernel took)
 whether or not one is open.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 import time
 from typing import NamedTuple
 
 import torch
 
+from queasars_tpu_torch.sim.slot_kernels import _on_cuda
 from queasars_tpu_torch.sim.statevector import GATE_CROT, GATE_ROT
 from queasars_tpu_torch.utils.batch_invariant import atan2
 from queasars_tpu_torch.utils.profiling import spanned
 
 LANE_BITS = 7
 
-#: :func:`build_fold_pipeline` calls and the host nanoseconds they took (two
-#: clock reads a call; the build enqueues its operations and waits for none)
-build_counts: dict[str, int] = {"builds": 0, "host_ns": 0}
+#: :func:`build_fold_pipeline` calls, the host nanoseconds they took (two
+#: clock reads a call) and the calls that launched ``qt_fold_build``
+build_counts: dict[str, int] = {"builds": 0, "host_ns": 0, "kernel": 0}
+#: the build kernel's largest size: one warp lane per qubit
+BUILD_KERNEL_MAX_QUBITS = 32
 
 
 class FoldPipeline(NamedTuple):
@@ -206,11 +216,112 @@ def build_fold_pipeline(
     slots (the reference's kernels row-scale the group matrix with them).
     The top group absorbs only up to n=21 (as in the reference, whose n=22
     kernels split that group's matrix in two).
+
+    Card tensors take ``qt_fold_build`` unless autograd is to differentiate
+    through ``angles`` (:func:`_takes_kernel`); the rest take
+    :func:`build_fold_pipeline_plain`.
     """
+    if gate_types.shape[2] != n_qubits:
+        raise ValueError("gate_types last axis must equal n_qubits")
+    start = time.perf_counter_ns()
+    if _takes_kernel(angles):
+        pipeline = _build_on_card(gate_types, controls, angles, layer_mask, n_qubits, absorb_diag)
+        build_counts["kernel"] = build_counts.get("kernel", 0) + 1
+    else:
+        pipeline = build_fold_pipeline_plain(
+            gate_types, controls, angles, layer_mask, n_qubits, absorb_diag)
+    build_counts["builds"] += 1
+    build_counts["host_ns"] += time.perf_counter_ns() - start
+    return pipeline
+
+
+def _takes_kernel(angles) -> bool:
+    """Whether a build of these angles is the kernel's: on the card, and
+    with no gradient wanted through them (the kernel has no backward)."""
+    return angles.is_cuda and not (torch.is_grad_enabled() and angles.requires_grad)
+
+
+def _build_on_card(gate_types, controls, angles, layer_mask, n_qubits, absorb_diag):
+    """:func:`build_fold_pipeline` as one launch of ``qt_fold_build`` on the
+    tensors' card and its current stream: the outputs are views of one
+    float32 and one int32 allocation, and nothing is copied from the host.
+    Refuses n > 32, mixed devices and shapes the kernel does not read."""
+    from queasars_tpu_torch.utils import cuda_lib
+
+    if not 1 <= n_qubits <= BUILD_KERNEL_MAX_QUBITS:
+        raise ValueError(
+            f"qt_fold_build takes 1 <= n_qubits <= {BUILD_KERNEL_MAX_QUBITS}, got {n_qubits}")
+    if not _on_cuda(gate_types, controls, angles, layer_mask):
+        raise ValueError("qt_fold_build runs on the card; the CPU takes build_fold_pipeline_plain")
+    pop, n_layers, n = gate_types.shape
+    inputs = []
+    for name, t, dtype, shape in (
+        ("gate_types", gate_types, torch.int32, (pop, n_layers, n)),
+        ("controls", controls, torch.int32, (pop, n_layers, n)),
+        ("angles", angles, torch.float32, (pop, n_layers, n, 3)),
+        ("layer_mask", layer_mask, torch.bool, (pop, n_layers)),
+    ):
+        if t.shape != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            t = t.to(dtype)
+        inputs.append(t if t.is_contiguous() else t.contiguous())
+    device = angles.device
+    pipeline = _outputs(pop, n_layers, n_qubits, device)
+    with torch.cuda.device(device):
+        status = cuda_lib.load().qt_fold_build(
+            *(t.data_ptr() for t in pipeline), *(t.data_ptr() for t in inputs), pop, n_layers,
+            n_qubits, int(absorb_diag), torch.cuda.current_stream(device).cuda_stream,
+        )
+    cuda_lib.check(status, "qt_fold_build")
+    return pipeline
+
+
+def _outputs(pop: int, n_layers: int, n_qubits: int, device) -> FoldPipeline:
+    """Uninitialised pipeline tensors for the build kernel to write: views
+    of one float32 and one int32 allocation (:func:`_layout`)."""
+    n_float, n_int, fields = _layout(pop, n_layers, n_qubits)
+    buffers = (torch.empty(n_float, dtype=torch.float32, device=device),
+               torch.empty(n_int, dtype=torch.int32, device=device))
+    return FoldPipeline(*(buffers[b].as_strided(shape, stride, offset)
+                          for b, shape, stride, offset in fields))
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(pop: int, n_layers: int, n_qubits: int):
+    """Where each :class:`FoldPipeline` field lies in the build kernel's two
+    output allocations: (float32 elements, int32 elements, per field in
+    field order (buffer 0 or 1, shape, contiguous strides, offset))."""
+    n_kron, d_slots = n_layers + 1, max(n_qubits // 2, 1)
+    slots, phases = (pop, n_layers, d_slots), (pop, n_layers, d_slots, 2, 2)
+    shapes = dict(factors=(pop, n_kron, n_qubits, 2, 2, 2), diag_ctrl=slots, diag_tgt=slots,
+                  diag_phase=phases, diag_count=(pop, n_layers),
+                  group_active=(pop, n_kron, n_axis_groups(n_qubits)), abs_ctrl=slots,
+                  abs_tgt=slots, abs_phase=phases, abs_count=(pop, n_layers))
+    ends, fields = [0, 0], []
+    for name in FoldPipeline._fields:
+        shape = shapes[name]
+        buffer = int(name not in ("factors", "diag_phase", "abs_phase"))
+        strides = tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+        fields.append((buffer, shape, strides, ends[buffer]))
+        ends[buffer] += math.prod(shape)
+    return ends[0], ends[1], tuple(fields)
+
+
+def build_fold_pipeline_plain(
+    gate_types: torch.Tensor,
+    controls: torch.Tensor,
+    angles: torch.Tensor,
+    layer_mask: torch.Tensor,
+    n_qubits: int,
+    absorb_diag: bool = False,
+) -> FoldPipeline:
+    """Plain version of :func:`build_fold_pipeline` in PyTorch operations on
+    the tensors' device, differentiable through ``angles``; neither a span
+    nor counted."""
     pop, n_layers, n = gate_types.shape
     if n != n_qubits:
         raise ValueError("gate_types last axis must equal n_qubits")
-    start = time.perf_counter_ns()
     device = angles.device
     mask = layer_mask.bool()
     gate_types = gate_types.to(torch.int32)
@@ -265,8 +376,6 @@ def build_fold_pipeline(
         absorbed = torch.zeros_like(is_crot)
     ctrl, tgt, ph_sorted, count = compact(is_crot & ~absorbed)
     a_ctrl, a_tgt, a_ph, a_count = compact(absorbed)
-    build_counts["builds"] += 1
-    build_counts["host_ns"] += time.perf_counter_ns() - start
     return FoldPipeline(
         factors=factors, diag_ctrl=ctrl, diag_tgt=tgt, diag_phase=ph_sorted,
         diag_count=count, group_active=group_active, abs_ctrl=a_ctrl, abs_tgt=a_tgt,

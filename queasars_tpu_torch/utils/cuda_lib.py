@@ -1,6 +1,6 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``: the slot, the
-fold, the compacted-gate and the amplitude-shard kernels and the NFT step,
-with the shared headers ``csrc/*.cuh``).
+fold, the compacted-gate and the amplitude-shard kernels, the NFT step and
+the fold pipeline's build, with the shared headers ``csrc/*.cuh``).
 
 Each source is compiled by its own ``nvcc`` process, all started together,
 and one more ``nvcc`` call links the objects into a shared library with a
@@ -66,6 +66,7 @@ SIGNATURES = {
     "qt_shard_diag_phase": [_P] * 4 + [_I] * 4 + [_P],
     "qt_shard_running_sum": [_P] * 2 + [_L, _I, _P],
     "qt_nft_step": [_P] * 11 + [_I] * 6 + [_P],
+    "qt_fold_build": [_P] * 14 + [_I] * 4 + [_P],
 }
 
 

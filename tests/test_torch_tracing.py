@@ -373,6 +373,7 @@ def test_a_default_route_config_four_solve_launches_fold_kernels_within_the_limi
     assert sum(n for row, n in counts.items() if row.startswith("fold_kernels.")) > 0
     assert counts["fold_kernels.nft_layer_sweep_folded"] > 0
     assert counts["fold_pipeline.builds"] > 0
+    assert counts["fold_pipeline.kernel"] == counts["fold_pipeline.builds"]
     answer = program.solve_answer(result, hamiltonian, 8)
     gaps = check.solve_gaps(answer, instance_seed, instance,
                             check.Reference(family["makespan_limit"], "cuda"))
