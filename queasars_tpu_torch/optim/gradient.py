@@ -48,7 +48,6 @@ from queasars_tpu_torch.optim.objective import objective_operands
 from queasars_tpu_torch.optim.prefix import (
     build_prefix_transform,
     cache_enabled,
-    choose_prefix_engine,
     prefix_enabled,
     prefix_mask,
     simulate_prefix_states,
@@ -386,11 +385,10 @@ class BatchedGradientDescent:
             shared, ops = ra
             initial = expand_initial(shared, gt.shape[0])
             act = act.to(torch.float32)[:, :, None] * cm
-            engine = choose_prefix_engine(n, ang.device)
             for s in range(n_slots):
                 with torch.no_grad():
                     prefix = simulate_prefix_states(
-                        gt, ctrl, ang, prefix_mask(lm, layers[:, s]), n, initial, mode=engine
+                        gt, ctrl, ang, prefix_mask(lm, layers[:, s]), n, initial
                     )
                 suffix = lm & ~prefix_mask(torch.ones_like(lm), layers[:, s])
                 objective = _Objective(ops, n, (gt, ctrl, suffix), prefix, crd[:, s], cm[:, s],

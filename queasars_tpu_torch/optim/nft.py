@@ -75,7 +75,6 @@ from queasars_tpu_torch.optim.objective import objective_operands, population_en
 from queasars_tpu_torch.optim.prefix import (
     build_prefix_transform,
     cache_enabled,
-    choose_prefix_engine,
     kernel_route,
     prefix_enabled,
     prefix_mask,
@@ -511,10 +510,9 @@ class BatchedNFT:
             shared, ops = ra
             initial = expand_initial(shared, gt.shape[0])
             z0 = torch.zeros(gt.shape[0], dtype=torch.float32, device=ang.device)
-            engine = choose_prefix_engine(n, ang.device)
             for s in range(n_slots):
                 prefix = simulate_prefix_states(
-                    gt, ctrl, ang, prefix_mask(lm, layers[:, s]), n, initial, mode=engine
+                    gt, ctrl, ang, prefix_mask(lm, layers[:, s]), n, initial
                 )
                 suffix = lm & ~prefix_mask(torch.ones_like(lm), layers[:, s])
                 objective = self._objective(ops, n, gt, ctrl, suffix, prefix)

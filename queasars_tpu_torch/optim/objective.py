@@ -1,47 +1,33 @@
 """Population objectives for the batched optimizers.
 
 Counterpart of ``queasars_tpu/optim/objective.py``: "angles -> energies" for
-a population, exact or from sampled shots, on one of two routes, as the JAX
-package's ``use_pallas=True`` route picks them:
-
-- the kron-fold route (the default; ``QUEASARS_MXU`` unset or "1"): the
-  genome becomes a fold pipeline (``sim/fold_pipeline.py``, with absorbed
-  same-group phases) and the fold kernels compute energies
-  (``energies_exact_folded``), probabilities for exact CVaR
-  (``population_probs_folded``) or sampled shots
-  (``sampled_shot_indices_folded``, 14 <= n <= 21);
-- the slot route (``QUEASARS_MXU=0``, or a size or device the fold kernels
-  do not take): the slot kernels ``energies_exact`` / ``population_probs``
-  / ``sampled_shot_indices`` (14 <= n <= 20).
+a population, exact or from sampled shots, on the route ``sim/routes.py``
+picks (the kron-fold kernels by default, the slot kernels under
+``QUEASARS_MXU=0`` or at a size or device the fold kernels do not take):
+energies, probabilities for exact CVaR, or sampled shots.
 
 With shots (``use_shots``), each individual draws ``shots`` uniforms from
 its own threefry key (``keys`` [P, 2], ``utils/prng.py``); in the in-kernel
-samplers' size range they go to the sampled kernel, elsewhere the
-probabilities kernel and the flat sampler (``sim/sampling.py``) draw the
-same shots.  The sampled states' energies are gathered from the table and
-reduced to a mean or, with ``use_cvar``, a CVaR over the shots.
+samplers' size range (``routes.sampler_route``) they go to the sampled
+kernel, elsewhere the probabilities kernel and the flat sampler
+(``sim/sampling.py``) draw the same shots.  The sampled states' energies are
+gathered from the table and reduced to a mean or, with ``use_cvar``, a CVaR
+over the shots.
 
 A general (non-diagonal) operator (``use_general``) takes the reference's
 general branches: with shots, QWC grouped measurement
-(``sim/grouped_sampling.py``: the one-launch grouped kernel on the fold
-route, one sampled-kernel launch per group on the slot route, the flat
-sampler outside the in-kernel samplers' sizes); exact, the states kernel
-and then a dense Hermitian matvec (n <= 12, no mesh) or the matrix-free
-term scan.
-
-On the CPU every wrapper runs its plain version; the fold route is chosen
-only for tensors on the card (:func:`mxu_fold_enabled`).
-:func:`population_probs` makes the same choice for the solve's final
-measurement distribution.
+(``sim/grouped_sampling.py``: on the in-kernel samplers, or the flat sampler
+outside their sizes); exact, the slot states kernel and then a dense
+Hermitian matvec (n <= 12, no mesh) or the matrix-free term scan.
+:func:`population_probs` also gives the solve's final measurement
+distribution.
 """
 
 from __future__ import annotations
 
-import os
-
 import torch
 
-from queasars_tpu_torch.sim import fold_kernels, grouped_sampling, slot_kernels
+from queasars_tpu_torch.sim import grouped_sampling, routes
 from queasars_tpu_torch.sim.expectation import (
     DenseHermitian,
     cvar_expectation_from_probs,
@@ -49,21 +35,9 @@ from queasars_tpu_torch.sim.expectation import (
     dense_expectation,
     general_pauli_expectation_real,
 )
-from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
 from queasars_tpu_torch.sim.sampling import sample_indices
-from queasars_tpu_torch.utils import prng
 from queasars_tpu_torch.utils.batch_invariant import row_mean
 from queasars_tpu_torch.utils.profiling import spanned
-
-
-def mxu_fold_enabled(use_mxu, n_qubits: int, path: str = "exact", device="cuda") -> bool:
-    """Resolve the kron-fold knob as the reference does: an explicit
-    ``use_mxu`` wins, else ``QUEASARS_MXU`` (default "1"); either way the
-    fold kernels must take the ``path`` at the size on ``device``
-    (:func:`~queasars_tpu_torch.sim.fold_kernels.fold_supported`)."""
-    if use_mxu is None:
-        use_mxu = os.environ.get("QUEASARS_MXU", "1") == "1"
-    return bool(use_mxu) and fold_kernels.fold_supported(n_qubits, device, path)
 
 
 @spanned("evaluator.population_probs")
@@ -71,14 +45,9 @@ def population_probs(
     gate_types, controls, angles, layer_mask, *, n_qubits: int, initial_state=None, use_mxu=None
 ) -> torch.Tensor:
     """Measurement probabilities [P, 2^n] on the route ``use_mxu`` picks
-    (None: :func:`mxu_fold_enabled` decides)."""
-    if mxu_fold_enabled(use_mxu, n_qubits, device=angles.device):
-        pipeline = build_fold_pipeline(
-            gate_types, controls, angles, layer_mask, n_qubits, absorb_diag=True
-        )
-        return fold_kernels.population_probs_folded(pipeline, n_qubits, initial_state)
-    return slot_kernels.population_probs(
-        gate_types, controls, angles, layer_mask, n_qubits, initial_state
+    (None: ``routes.fold_enabled`` decides)."""
+    return routes.probs(
+        gate_types, controls, angles, layer_mask, n_qubits, initial_state, use_mxu=use_mxu
     )
 
 
@@ -87,25 +56,15 @@ def population_shot_indices(
     initial_state=None, use_mxu=None,
 ) -> torch.Tensor:
     """Sampled basis indices [P, shots] of each individual's circuit, drawn
-    with its key (``keys`` [P, 2]): the folded sampled kernel on the fold
-    route (14 <= n <= 21), the slot sampled kernel otherwise for
-    14 <= n <= 20, else the probabilities kernel and the flat sampler.  The
-    draws are the reference's in every branch (``u = uniform * total``)."""
-    device = angles.device
-    fold = mxu_fold_enabled(use_mxu, n_qubits, "sampler", device)
-    if n_qubits >= slot_kernels.SAMPLER_MIN_QUBITS and (
-        fold or n_qubits <= slot_kernels.SAMPLER_MAX_QUBITS
-    ):
-        frac = prng.uniform(keys, (shots,)).to(device)
-        if fold:
-            pipeline = build_fold_pipeline(
-                gate_types, controls, angles, layer_mask, n_qubits, absorb_diag=True
-            )
-            return fold_kernels.sampled_shot_indices_folded(
-                pipeline, frac, n_qubits, initial_state
-            )
-        return slot_kernels.sampled_shot_indices(
-            gate_types, controls, angles, layer_mask, frac, n_qubits, initial_state
+    with its key (``keys`` [P, 2]): the in-kernel sampler
+    ``routes.sampler_route`` names, else the probabilities kernel and the
+    flat sampler.  The draws are the reference's in every branch
+    (``u = uniform * total``)."""
+    fold = routes.sampler_route(use_mxu, n_qubits, angles.device)
+    if fold is not None:
+        return routes.shot_indices(
+            gate_types, controls, angles, layer_mask, keys, n_qubits, shots, initial_state,
+            fold=fold,
         )
     probs = population_probs(
         gate_types, controls, angles, layer_mask, n_qubits=n_qubits,
@@ -138,7 +97,7 @@ def population_energies(
     ``initial_state`` is None (|0...0>) or per-individual [P, 2, 2^n].
     The operands are :func:`objective_operands`' fields; ``keys`` [P, 2]
     are the individuals' PRNG keys, read only with ``use_shots``;
-    ``use_mxu`` picks the route (None: :func:`mxu_fold_enabled` decides).
+    ``use_mxu`` picks the route (None: ``routes.fold_enabled`` decides).
     With ``use_general``, ``table`` is a general operator's operands:
     :class:`~queasars_tpu_torch.sim.grouped_sampling.GroupedOperands` with
     shots (``shots`` an int or a per-group tuple), else a
@@ -164,13 +123,8 @@ def population_energies(
             initial_state=initial_state, use_mxu=use_mxu,
         )
         return cvar_expectation_from_probs(probs, sorted_energies, energy_order, alpha)
-    if mxu_fold_enabled(use_mxu, n_qubits, device=angles.device):
-        pipeline = build_fold_pipeline(
-            gate_types, controls, angles, layer_mask, n_qubits, absorb_diag=True
-        )
-        return fold_kernels.energies_exact_folded(pipeline, table, n_qubits, initial_state)
-    return slot_kernels.energies_exact(
-        gate_types, controls, angles, layer_mask, table, n_qubits, initial_state
+    return routes.energies(
+        gate_types, controls, angles, layer_mask, table, n_qubits, initial_state, use_mxu=use_mxu
     )
 
 
@@ -179,23 +133,22 @@ def _general_energies(
     initial_state, use_mxu,
 ):
     """The general-operator branches of :func:`population_energies`, chosen
-    as the reference's are: grouped shots on the in-kernel samplers within
-    their sizes (14 <= n <= 21 on the fold route, <= 20 on the slot route),
-    else simulate once and sample each group with the flat sampler; exact
-    energies from the slot states kernel's states."""
+    as the reference's are: grouped shots on the in-kernel sampler
+    ``routes.sampler_route`` names, else simulate once and sample each group
+    with the flat sampler; exact energies from the slot states kernel's
+    states."""
     if use_shots:
-        fold = mxu_fold_enabled(use_mxu, n_qubits, "sampler", angles.device)
-        cap = fold_kernels._CAPS["sampler"] if fold else slot_kernels.SAMPLER_MAX_QUBITS
         kwargs = dict(n_qubits=n_qubits, shots=shots, initial_state=initial_state)
-        if slot_kernels.SAMPLER_MIN_QUBITS <= n_qubits <= cap:
+        fold = routes.sampler_route(use_mxu, n_qubits, angles.device)
+        if fold is not None:
             return grouped_sampling.grouped_shot_energies_kernels(
-                gate_types, controls, angles, layer_mask, keys, table, use_mxu=use_mxu, **kwargs
+                gate_types, controls, angles, layer_mask, keys, table, fold=fold, **kwargs
             )
         return grouped_sampling.grouped_shot_energies(
             gate_types, controls, angles, layer_mask, keys, table, **kwargs
         )
-    states = slot_kernels.population_states(
-        gate_types, controls, angles, layer_mask, n_qubits, initial_state
+    states = routes.states(
+        gate_types, controls, angles, layer_mask, n_qubits, initial_state, fold=False
     )
     if isinstance(table, DenseHermitian):
         return dense_expectation(states, table)

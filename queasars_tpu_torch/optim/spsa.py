@@ -50,7 +50,6 @@ from queasars_tpu_torch.optim.objective import objective_operands, population_en
 from queasars_tpu_torch.optim.prefix import (
     build_prefix_transform,
     cache_enabled,
-    choose_prefix_engine,
     prefix_enabled,
     prefix_mask,
     simulate_prefix_states,
@@ -469,10 +468,9 @@ class BatchedSPSA:
             gt, ctrl, ang, lm, crd, cm, act, layers, keys = pa
             shared, ops = ra
             initial = expand_initial(shared, gt.shape[0])
-            engine = choose_prefix_engine(n, ang.device)
             for s in range(n_slots):
                 prefix = simulate_prefix_states(
-                    gt, ctrl, ang, prefix_mask(lm, layers[:, s]), n, initial, mode=engine
+                    gt, ctrl, ang, prefix_mask(lm, layers[:, s]), n, initial
                 )
                 suffix = lm & ~prefix_mask(torch.ones_like(lm), layers[:, s])
                 slot = _Search(ops, n, (gt, ctrl, suffix), prefix, ang.shape, crd[:, s],

@@ -2,15 +2,15 @@
 
 Counterpart of ``queasars_tpu/optim/sweep_kernel_launch.py``.  Two variants
 share the contract, and :func:`nft_layer_sweep_launch` takes the one
-:func:`~queasars_tpu_torch.optim.objective.mxu_fold_enabled` picks (path
-``"sweep"``), as the objective's entry points do:
+``routes.fold_enabled`` picks (path ``"sweep"``), as the objective's entry
+points do:
 
 - slot: prefix states from the slot states kernel, then the whole
   ``maxiter`` sweep on the slot sweep kernel;
-- folded (:func:`nft_layer_sweep_folded_launch`): the prefix's fold pipeline
-  (absorbed phases on) through the folded states kernel, then the folded
-  sweep, which applies the swept layer as two kron layers and a phase pass
-  with that layer's factors rebuilt on the card from the current angles.
+- folded (:func:`nft_layer_sweep_folded_launch`): prefix states on the fold
+  route (``routes.states``), then the folded sweep, which applies the swept
+  layer as two kron layers and a phase pass with that layer's factors
+  rebuilt on the card from the current angles.
 
 On the card each sweep first reads the steps at which some individual's
 probed qubit changes back to the host (``slot_kernels.sweep_transitions``,
@@ -23,10 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from queasars_tpu_torch.optim.objective import mxu_fold_enabled
 from queasars_tpu_torch.optim.prefix import prefix_mask
-from queasars_tpu_torch.sim import fold_kernels, slot_kernels
-from queasars_tpu_torch.sim.fold_pipeline import build_fold_pipeline
+from queasars_tpu_torch.sim import fold_kernels, routes, slot_kernels
 from queasars_tpu_torch.utils.profiling import span, spanned
 
 
@@ -45,17 +43,16 @@ def nft_layer_sweep_launch(
     """Device tensors in (genome [P, L, n] tensors, ``last_layer`` [P]
     long, ``coords_qa`` [P, K, 2] int32, ``n_free`` [P] int32, ``active``
     [P] bool, ``table`` [2^n]); returns (optimized layer angles [P, n, 3],
-    final energies [P]) from the variant
-    :func:`~queasars_tpu_torch.optim.objective.mxu_fold_enabled` picks."""
-    if mxu_fold_enabled(None, n_qubits, "sweep", angles.device):
+    final energies [P]) from the variant ``routes.fold_enabled`` picks."""
+    if routes.fold_enabled(None, n_qubits, "sweep", angles.device):
         return nft_layer_sweep_folded_launch(
             gate_types, controls, angles, layer_mask, last_layer, coords_qa, n_free, active,
             table, n_qubits=n_qubits, maxiter=maxiter, reset_interval=reset_interval,
             initial_state=initial_state,
         )
-    prefix = slot_kernels.population_states(
+    prefix = routes.states(
         gate_types, controls, angles, prefix_mask(layer_mask, last_layer), n_qubits,
-        initial_state,
+        initial_state, fold=False,
     )
     return slot_kernels.nft_layer_sweep(
         *_swept_layer((gate_types, controls, angles), last_layer),
@@ -78,11 +75,10 @@ def nft_layer_sweep_folded_launch(
         gate1_host, ctrl1_host = gate1.cpu().numpy(), ctrl1.cpu().numpy()
     meta = fold_kernels.fold_sweep_metadata(gate1_host, ctrl1_host, n_qubits)
     meta = [torch.as_tensor(m, device=angles.device) for m in meta]
-    pipeline = build_fold_pipeline(
+    prefix = routes.states(
         gate_types, controls, angles, prefix_mask(layer_mask, last_layer), n_qubits,
-        absorb_diag=True,
+        initial_state, fold=True,
     )
-    prefix = fold_kernels.population_states_folded(pipeline, n_qubits, initial_state)
     return fold_kernels.nft_layer_sweep_folded(
         gate1, angles1, coords_qa, n_free, active, prefix, table, *meta,
         n_qubits, maxiter, reset_interval,

@@ -45,13 +45,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from queasars_tpu_torch.sim.slot_kernels import (
-    ENGINE_MAX_QUBITS,
-    _expect,
-    _library,
-    _on_cuda,
-    _stream,
-)
+from queasars_tpu_torch.sim.slot_kernels import ENGINE_MAX_QUBITS
 from queasars_tpu_torch.sim.statevector import (
     GATE_CROT,
     GATE_ROT,
@@ -59,6 +53,8 @@ from queasars_tpu_torch.sim.statevector import (
     init_states,
     u3_entries,
 )
+from queasars_tpu_torch.utils import cuda_lib
+from queasars_tpu_torch.utils.cuda_lib import expect, on_cuda, stream
 from queasars_tpu_torch.utils.device import resolve_device
 
 #: qubits below this index sit on the TPU layout's lane axis; the compacted
@@ -230,10 +226,10 @@ def _check(compact: CompactGates, angles: torch.Tensor) -> int:
     if not 1 <= n <= ENGINE_MAX_QUBITS:
         raise ValueError(f"the compacted-gate kernels need 1 <= n_qubits <= {ENGINE_MAX_QUBITS}")
     for name, t in zip(("qubits", "controls", "angle_index"), _lists(compact)):
-        _expect(t, name, torch.int32, (pop, g_max))
-    _expect(compact.boundaries, "boundaries", torch.int32, (pop, 2 * n_layers + 1))
+        expect(t, name, torch.int32, (pop, g_max))
+    expect(compact.boundaries, "boundaries", torch.int32, (pop, 2 * n_layers + 1))
     # angle_index is flat into the [P, L*n, 3] view of contiguous angles
-    _expect(angles, "angles", torch.float32, (pop, n_layers, n, 3))
+    expect(angles, "angles", torch.float32, (pop, n_layers, n, 3))
     if not 0 <= compact.max_count <= g_max:
         raise ValueError(f"max_count {compact.max_count} outside [0, {g_max}]")
     return pop
@@ -242,19 +238,18 @@ def _check(compact: CompactGates, angles: torch.Tensor) -> int:
 def compact_probs(compact: CompactGates, angles: torch.Tensor) -> torch.Tensor:
     """Measurement probabilities [P, 2^n] after each individual's compacted
     gate list, from |0...0>; ``angles`` is the live [P, L, n, 3] tensor."""
-    if not _on_cuda(*_lists(compact), angles):
+    if not on_cuda(*_lists(compact), angles):
         return compact_probs_plain(compact, angles)
     pop = _check(compact, angles)
     dim = 1 << compact.n_qubits
     probs = torch.empty((pop, dim), dtype=torch.float32, device=angles.device)
     work = torch.empty((pop, 2, dim), dtype=torch.float32, device=angles.device)
-    lib = _library()
-    status = lib.load().qt_compact_probs(
+    status = cuda_lib.load().qt_compact_probs(
         probs.data_ptr(), work.data_ptr(), *(t.data_ptr() for t in _lists(compact)),
         angles.data_ptr(), pop, compact.max_gates, compact.max_count, compact.n_layers,
-        compact.n_qubits, _stream(),
+        compact.n_qubits, stream(),
     )
-    lib.check(status, "qt_compact_probs")
+    cuda_lib.check(status, "qt_compact_probs")
     launch_counts["compact_probs"] += 1
     return probs
 
@@ -265,13 +260,12 @@ def compact_energies_exact(
     """Exact diagonal energies [P]: sum_i |psi_i|^2 * table[i] after each
     individual's compacted gate list, from |0...0>, with the slot kernels'
     deterministic reduction (equal inputs give equal bits)."""
-    if not _on_cuda(*_lists(compact), angles, table):
+    if not on_cuda(*_lists(compact), angles, table):
         return compact_energies_exact_plain(compact, angles, table)
     pop = _check(compact, angles)
     dim = 1 << compact.n_qubits
-    _expect(table, "table", torch.float32, (dim,))
-    lib = _library()
-    kernels = lib.load()
+    expect(table, "table", torch.float32, (dim,))
+    kernels = cuda_lib.load()
     device = angles.device
     out = torch.empty(pop, dtype=torch.float32, device=device)
     work = torch.empty((pop, 2, dim), dtype=torch.float32, device=device)
@@ -281,8 +275,8 @@ def compact_energies_exact(
     status = kernels.qt_compact_energies_exact(
         out.data_ptr(), work.data_ptr(), partial.data_ptr(),
         *(t.data_ptr() for t in _lists(compact)), angles.data_ptr(), table.data_ptr(),
-        pop, compact.max_gates, compact.max_count, compact.n_layers, compact.n_qubits, _stream(),
+        pop, compact.max_gates, compact.max_count, compact.n_layers, compact.n_qubits, stream(),
     )
-    lib.check(status, "qt_compact_energies_exact")
+    cuda_lib.check(status, "qt_compact_energies_exact")
     launch_counts["compact_energies_exact"] += 1
     return out

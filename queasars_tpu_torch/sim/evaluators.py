@@ -178,7 +178,7 @@ class _OperatorEvaluator(BaseCircuitEvaluator):
     """Shared state of the operator evaluators: the operator, the CVaR
     alpha, the optional start state and, for a diagonal operator, its energy
     table (sorted with its order for CVaR).  Direct evaluations take
-    ``_use_mxu``'s route (``optim/objective.py``)."""
+    ``_use_mxu``'s route (``sim/routes.py``; None: the optimizers' rule)."""
 
     _use_mxu: Optional[bool] = None
 
@@ -313,7 +313,7 @@ class StatevectorExpectationEvaluator(_OperatorEvaluator):
 
     #: exact energies run on the slot kernels, as the reference's
     #: ``evaluate_packed`` does (the optimizers' objectives take the route
-    #: ``QUEASARS_MXU`` picks)
+    #: ``sim/routes.py`` picks)
     _use_mxu = False
 
     def __init__(

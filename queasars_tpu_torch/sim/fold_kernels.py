@@ -64,16 +64,13 @@ from queasars_tpu_torch.sim.fold_pipeline import (
 from queasars_tpu_torch.sim.sampling import hierarchical_sample_plain
 from queasars_tpu_torch.sim.slot_kernels import (
     SAMPLER_MIN_QUBITS,
-    _check_uniforms,
-    _expect,
-    _library,
-    _on_cuda,
-    _ptr,
-    _stream,
+    check_uniforms,
     sampler_scratch,
     sweep_transitions,
 )
 from queasars_tpu_torch.sim.statevector import GATE_CROT, GATE_ROT
+from queasars_tpu_torch.utils import cuda_lib
+from queasars_tpu_torch.utils.cuda_lib import expect, on_cuda, ptr, stream
 
 launch_counts: dict[str, int] = {
     "energies_exact_folded": 0,
@@ -84,10 +81,11 @@ launch_counts: dict[str, int] = {
     "grouped_shot_indices_folded": 0,
 }
 
-#: largest n per path: exact/probs/states reach 22, the in-kernel sampler 21
-#: and the sweep 20 (the reference's caps: its sampler's scratch and its
+#: the folded in-kernel sampler's largest size (the slot sampler's is 20)
+SAMPLER_MAX_QUBITS = 21
+#: largest n per path (the reference's caps: its sampler's scratch and its
 #: sweep's four resident state planes)
-_CAPS = {"exact": 22, "sampler": 21, "sweep": 20}
+_CAPS = {"exact": 22, "sampler": SAMPLER_MAX_QUBITS, "sweep": 20}
 #: most measurement groups the one-launch grouped sampler takes (the
 #: reference's bound on its static per-group unroll)
 GROUPED_MAX_GROUPS = 64
@@ -120,17 +118,17 @@ def _check_pipeline(pipeline: FoldPipeline, n_qubits: int) -> tuple[int, int, in
     pop, n_kron = pipeline.factors.shape[0], pipeline.factors.shape[1]
     n_layers, d_slots = n_kron - 1, pipeline.diag_ctrl.shape[2]
     n_groups = n_axis_groups(n_qubits)
-    _expect(pipeline.factors, "factors", torch.float32, (pop, n_kron, n_qubits, 2, 2, 2))
+    expect(pipeline.factors, "factors", torch.float32, (pop, n_kron, n_qubits, 2, 2, 2))
     for prefix in ("diag", "abs"):
-        _expect(getattr(pipeline, f"{prefix}_ctrl"), f"{prefix}_ctrl", torch.int32,
+        expect(getattr(pipeline, f"{prefix}_ctrl"), f"{prefix}_ctrl", torch.int32,
                 (pop, n_layers, d_slots))
-        _expect(getattr(pipeline, f"{prefix}_tgt"), f"{prefix}_tgt", torch.int32,
+        expect(getattr(pipeline, f"{prefix}_tgt"), f"{prefix}_tgt", torch.int32,
                 (pop, n_layers, d_slots))
-        _expect(getattr(pipeline, f"{prefix}_phase"), f"{prefix}_phase", torch.float32,
+        expect(getattr(pipeline, f"{prefix}_phase"), f"{prefix}_phase", torch.float32,
                 (pop, n_layers, d_slots, 2, 2))
-        _expect(getattr(pipeline, f"{prefix}_count"), f"{prefix}_count", torch.int32,
+        expect(getattr(pipeline, f"{prefix}_count"), f"{prefix}_count", torch.int32,
                 (pop, n_layers))
-    _expect(pipeline.group_active, "group_active", torch.int32, (pop, n_kron, n_groups))
+    expect(pipeline.group_active, "group_active", torch.int32, (pop, n_kron, n_groups))
     return pop, n_kron, d_slots
 
 
@@ -138,12 +136,6 @@ def _pipeline_ptrs(pipeline: FoldPipeline) -> list[int]:
     """The ten pipeline tensors' device pointers, in the C entry points'
     order (the FoldPipeline field order)."""
     return [t.data_ptr() for t in pipeline]
-
-
-def _on_card(pipeline: FoldPipeline, *others) -> bool:
-    """True when the pipeline and ``others`` (None entries skipped) lie on
-    the card, False when all lie on the CPU; mixed devices are refused."""
-    return _on_cuda(*pipeline, *(t for t in others if t is not None))
 
 
 # ---------------------------------------------------------------------------
@@ -160,19 +152,18 @@ def population_states_folded(pipeline: FoldPipeline, n_qubits: int, initial=None
     """Statevector planes [P, 2, 2^n] after each pipeline's circuit, from
     |0...0> or per-individual ``initial`` [P, 2, 2^n] states (the reference
     starts from |0...0> only; the optional start state is the port's)."""
-    if not _on_card(pipeline, initial):
+    if not on_cuda(*pipeline, initial):
         return population_states_folded_plain(pipeline, n_qubits, initial)
     pop, n_kron, d_slots = _check_pipeline(pipeline, n_qubits)
     dim = 1 << n_qubits
     if initial is not None:
-        _expect(initial, "initial", torch.float32, (pop, 2, dim))
+        expect(initial, "initial", torch.float32, (pop, 2, dim))
     out = torch.empty((pop, 2, dim), dtype=torch.float32, device=pipeline.factors.device)
-    lib = _library()
-    status = lib.load().qt_fold_states(
-        out.data_ptr(), _ptr(initial), *_pipeline_ptrs(pipeline),
-        pop, n_kron, n_qubits, d_slots, _stream(),
+    status = cuda_lib.load().qt_fold_states(
+        out.data_ptr(), ptr(initial), *_pipeline_ptrs(pipeline),
+        pop, n_kron, n_qubits, d_slots, stream(),
     )
-    lib.check(status, "qt_fold_states")
+    cuda_lib.check(status, "qt_fold_states")
     launch_counts["population_states_folded"] += 1
     return out
 
@@ -190,21 +181,20 @@ def population_probs_folded_plain(pipeline: FoldPipeline, n_qubits: int, initial
 
 def population_probs_folded(pipeline: FoldPipeline, n_qubits: int, initial=None):
     """Measurement probabilities [P, 2^n] after each pipeline's circuit."""
-    if not _on_card(pipeline, initial):
+    if not on_cuda(*pipeline, initial):
         return population_probs_folded_plain(pipeline, n_qubits, initial)
     pop, n_kron, d_slots = _check_pipeline(pipeline, n_qubits)
     dim = 1 << n_qubits
     if initial is not None:
-        _expect(initial, "initial", torch.float32, (pop, 2, dim))
+        expect(initial, "initial", torch.float32, (pop, 2, dim))
     device = pipeline.factors.device
     probs = torch.empty((pop, dim), dtype=torch.float32, device=device)
     work = torch.empty((pop, 2, dim), dtype=torch.float32, device=device)
-    lib = _library()
-    status = lib.load().qt_fold_probs(
-        probs.data_ptr(), work.data_ptr(), _ptr(initial), *_pipeline_ptrs(pipeline),
-        pop, n_kron, n_qubits, d_slots, _stream(),
+    status = cuda_lib.load().qt_fold_probs(
+        probs.data_ptr(), work.data_ptr(), ptr(initial), *_pipeline_ptrs(pipeline),
+        pop, n_kron, n_qubits, d_slots, stream(),
     )
-    lib.check(status, "qt_fold_probs")
+    cuda_lib.check(status, "qt_fold_probs")
     launch_counts["population_probs_folded"] += 1
     return probs
 
@@ -223,15 +213,14 @@ def energies_exact_folded(pipeline: FoldPipeline, table, n_qubits: int, initial=
     """Exact diagonal energies [P]: sum_i |psi_i|^2 * table[i] after each
     pipeline's circuit (from |0...0> or per-individual ``initial``).  The
     reduction is deterministic: equal inputs give equal bits."""
-    if not _on_card(pipeline, table, initial):
+    if not on_cuda(*pipeline, table, initial):
         return energies_exact_folded_plain(pipeline, table, n_qubits, initial)
     pop, n_kron, d_slots = _check_pipeline(pipeline, n_qubits)
     dim = 1 << n_qubits
-    _expect(table, "table", torch.float32, (dim,))
+    expect(table, "table", torch.float32, (dim,))
     if initial is not None:
-        _expect(initial, "initial", torch.float32, (pop, 2, dim))
-    lib = _library()
-    kernels = lib.load()
+        expect(initial, "initial", torch.float32, (pop, 2, dim))
+    kernels = cuda_lib.load()
     device = pipeline.factors.device
     out = torch.empty(pop, dtype=torch.float32, device=device)
     work = torch.empty((pop, 2, dim), dtype=torch.float32, device=device)
@@ -239,10 +228,10 @@ def energies_exact_folded(pipeline: FoldPipeline, table, n_qubits: int, initial=
         (pop, kernels.qt_energy_partials(n_qubits)), dtype=torch.float32, device=device
     )
     status = kernels.qt_fold_energies(
-        out.data_ptr(), work.data_ptr(), partial.data_ptr(), _ptr(initial), table.data_ptr(),
-        *_pipeline_ptrs(pipeline), pop, n_kron, n_qubits, d_slots, _stream(),
+        out.data_ptr(), work.data_ptr(), partial.data_ptr(), ptr(initial), table.data_ptr(),
+        *_pipeline_ptrs(pipeline), pop, n_kron, n_qubits, d_slots, stream(),
     )
-    lib.check(status, "qt_fold_energies")
+    cuda_lib.check(status, "qt_fold_energies")
     launch_counts["energies_exact_folded"] += 1
     return out
 
@@ -263,27 +252,26 @@ def sampled_shot_indices_folded(pipeline: FoldPipeline, u_frac, n_qubits: int, i
     (from |0...0> or per-individual ``initial``) at the uniforms ``u_frac``
     [P, S] in [0, 1), by the slot sampler's hierarchical inverse CDF
     (14 <= n <= 21).  The caller gathers ``table[indices]``."""
-    if not _on_card(pipeline, u_frac, initial):
+    if not on_cuda(*pipeline, u_frac, initial):
         return sampled_shot_indices_folded_plain(pipeline, u_frac, n_qubits, initial)
-    if not SAMPLER_MIN_QUBITS <= n_qubits <= _CAPS["sampler"]:
+    if not SAMPLER_MIN_QUBITS <= n_qubits <= SAMPLER_MAX_QUBITS:
         raise ValueError(
-            f"the folded sampler needs {SAMPLER_MIN_QUBITS} <= n_qubits <= {_CAPS['sampler']}"
+            f"the folded sampler needs {SAMPLER_MIN_QUBITS} <= n_qubits <= {SAMPLER_MAX_QUBITS}"
         )
     pop, n_kron, d_slots = _check_pipeline(pipeline, n_qubits)
     dim = 1 << n_qubits
     if initial is not None:
-        _expect(initial, "initial", torch.float32, (pop, 2, dim))
-    shots = _check_uniforms(u_frac, pop)
+        expect(initial, "initial", torch.float32, (pop, 2, dim))
+    shots = check_uniforms(u_frac, pop)
     device = pipeline.factors.device
     out = torch.empty((pop, shots), dtype=torch.int32, device=device)
     work = torch.empty((pop, 2, dim), dtype=torch.float32, device=device)
     scratch = sampler_scratch(pop, n_qubits, device)
-    lib = _library()
-    status = lib.load().qt_sampled_shot_indices_folded(
-        out.data_ptr(), work.data_ptr(), scratch.data_ptr(), u_frac.data_ptr(), _ptr(initial),
-        *_pipeline_ptrs(pipeline), pop, n_kron, n_qubits, d_slots, shots, _stream(),
+    status = cuda_lib.load().qt_sampled_shot_indices_folded(
+        out.data_ptr(), work.data_ptr(), scratch.data_ptr(), u_frac.data_ptr(), ptr(initial),
+        *_pipeline_ptrs(pipeline), pop, n_kron, n_qubits, d_slots, shots, stream(),
     )
-    lib.check(status, "qt_sampled_shot_indices_folded")
+    cuda_lib.check(status, "qt_sampled_shot_indices_folded")
     launch_counts["sampled_shot_indices_folded"] += 1
     return out
 
@@ -336,7 +324,7 @@ def grouped_shot_indices_folded(
     waits for the card) says which groups rotate at all; the others sample
     the circuit's own state."""
     u_fracs = tuple(u_fracs)
-    if not _on_card(pipeline, rot_factors, rot_active, initial, *u_fracs):
+    if not on_cuda(*pipeline, rot_factors, rot_active, initial, *u_fracs):
         return grouped_shot_indices_folded_plain(
             pipeline, rot_factors, rot_active, u_fracs, n_qubits, initial
         )
@@ -348,16 +336,16 @@ def grouped_shot_indices_folded(
         or len(u_fracs) != n_meas
     ):
         raise ValueError(
-            f"the grouped sampler needs {SAMPLER_MIN_QUBITS} <= n_qubits <= {_CAPS['sampler']}, "
+            f"the grouped sampler needs {SAMPLER_MIN_QUBITS} <= n_qubits <= {SAMPLER_MAX_QUBITS}, "
             f"1 <= groups <= {GROUPED_MAX_GROUPS} and one uniform array per group"
         )
     pop, n_kron, d_slots = _check_pipeline(pipeline, n_qubits)
     dim, n_groups = 1 << n_qubits, n_axis_groups(n_qubits)
-    _expect(rot_factors, "rot_factors", torch.float32, (n_meas, n_qubits, 2, 2, 2))
-    _expect(rot_active, "rot_active", torch.float32, (n_meas, n_groups))
+    expect(rot_factors, "rot_factors", torch.float32, (n_meas, n_qubits, 2, 2, 2))
+    expect(rot_active, "rot_active", torch.float32, (n_meas, n_groups))
     if initial is not None:
-        _expect(initial, "initial", torch.float32, (pop, 2, dim))
-    shots = [_check_uniforms(frac, pop) for frac in u_fracs]
+        expect(initial, "initial", torch.float32, (pop, 2, dim))
+    shots = [check_uniforms(frac, pop) for frac in u_fracs]
     if rotate is None:
         rotate = rot_active.bool().any(dim=1).tolist()
     rotate = [bool(r) for r in rotate]
@@ -374,14 +362,13 @@ def grouped_shot_indices_folded(
     active = active.contiguous()
     host_shots = (ctypes.c_int * n_meas)(*shots)
     host_rotate = (ctypes.c_int * n_meas)(*map(int, rotate))
-    lib = _library()
-    status = lib.load().qt_grouped_shot_indices_folded(
-        out.data_ptr(), work.data_ptr(), _ptr(rotated), scratch.data_ptr(), frac.data_ptr(),
-        _ptr(initial), *_pipeline_ptrs(pipeline), factors.data_ptr(), active.data_ptr(),
+    status = cuda_lib.load().qt_grouped_shot_indices_folded(
+        out.data_ptr(), work.data_ptr(), ptr(rotated), scratch.data_ptr(), frac.data_ptr(),
+        ptr(initial), *_pipeline_ptrs(pipeline), factors.data_ptr(), active.data_ptr(),
         ctypes.addressof(host_shots), ctypes.addressof(host_rotate),
-        n_meas, pop, n_kron, n_qubits, d_slots, _stream(),
+        n_meas, pop, n_kron, n_qubits, d_slots, stream(),
     )
-    lib.check(status, "qt_grouped_shot_indices_folded")
+    cuda_lib.check(status, "qt_grouped_shot_indices_folded")
     launch_counts["grouped_shot_indices_folded"] += 1
     offsets = np.cumsum([0] + [pop * s for s in shots])
     return tuple(
@@ -492,7 +479,7 @@ def nft_layer_sweep_folded(
     """
     meta = (diag_ctrl, diag_tgt, slot_of_q, diag_count, group_active)
     tensors = (gate_types, angles, coords, n_free, active, prefix, table) + meta
-    if not _on_cuda(*tensors):
+    if not on_cuda(*tensors):
         return nft_layer_sweep_folded_plain(
             gate_types, angles, coords, n_free, active, prefix, table, *meta,
             n_qubits, maxiter, reset_interval,
@@ -502,22 +489,21 @@ def nft_layer_sweep_folded(
     pop, dim = gate_types.shape[0], 1 << n_qubits
     k_max, d_slots = coords.shape[1], diag_ctrl.shape[2]
     n_groups = n_axis_groups(n_qubits)
-    _expect(gate_types, "gate_types", torch.int32, (pop, n_qubits))
-    _expect(angles, "angles", torch.float32, (pop, n_qubits, 3))
-    _expect(coords, "coords", torch.int32, (pop, k_max, 2))
-    _expect(n_free, "n_free", torch.int32, (pop,))
-    _expect(active, "active", torch.bool, (pop,))
-    _expect(prefix, "prefix", torch.float32, (pop, 2, dim))
-    _expect(table, "table", torch.float32, (dim,))
-    _expect(diag_ctrl, "diag_ctrl", torch.int32, (pop, 1, d_slots))
-    _expect(diag_tgt, "diag_tgt", torch.int32, (pop, 1, d_slots))
-    _expect(slot_of_q, "slot_of_q", torch.int32, (pop, 1, n_qubits))
-    _expect(diag_count, "diag_count", torch.int32, (pop, 1, 1))
-    _expect(group_active, "group_active", torch.int32, (pop, 2, n_groups))
+    expect(gate_types, "gate_types", torch.int32, (pop, n_qubits))
+    expect(angles, "angles", torch.float32, (pop, n_qubits, 3))
+    expect(coords, "coords", torch.int32, (pop, k_max, 2))
+    expect(n_free, "n_free", torch.int32, (pop,))
+    expect(active, "active", torch.bool, (pop,))
+    expect(prefix, "prefix", torch.float32, (pop, 2, dim))
+    expect(table, "table", torch.float32, (dim,))
+    expect(diag_ctrl, "diag_ctrl", torch.int32, (pop, 1, d_slots))
+    expect(diag_tgt, "diag_tgt", torch.int32, (pop, 1, d_slots))
+    expect(slot_of_q, "slot_of_q", torch.int32, (pop, 1, n_qubits))
+    expect(diag_count, "diag_count", torch.int32, (pop, 1, 1))
+    expect(group_active, "group_active", torch.int32, (pop, 2, n_groups))
     if k_max < 1 or maxiter < 0 or reset_interval < 1:
         raise ValueError("need k_max >= 1, maxiter >= 0 and reset_interval >= 1")
-    lib = _library()
-    kernels = lib.load()
+    kernels = cuda_lib.load()
     device = angles.device
 
     def scratch(*shape, dtype=torch.float32):
@@ -539,8 +525,8 @@ def nft_layer_sweep_folded(
     status = kernels.qt_fold_nft_sweep(
         out_angles.data_ptr(), z.data_ptr(), *(t.data_ptr() for t in work),
         transitions.ctypes.data, *(t.data_ptr() for t in tensors),
-        pop, n_qubits, k_max, d_slots, maxiter, reset_interval, _stream(),
+        pop, n_qubits, k_max, d_slots, maxiter, reset_interval, stream(),
     )
-    lib.check(status, "qt_fold_nft_sweep")
+    cuda_lib.check(status, "qt_fold_nft_sweep")
     launch_counts["nft_layer_sweep_folded"] += 1
     return out_angles, z

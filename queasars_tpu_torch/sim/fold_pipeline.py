@@ -46,9 +46,10 @@ from typing import NamedTuple
 
 import torch
 
-from queasars_tpu_torch.sim.slot_kernels import _on_cuda
 from queasars_tpu_torch.sim.statevector import GATE_CROT, GATE_ROT
+from queasars_tpu_torch.utils import cuda_lib
 from queasars_tpu_torch.utils.batch_invariant import atan2
+from queasars_tpu_torch.utils.cuda_lib import on_cuda
 from queasars_tpu_torch.utils.profiling import spanned
 
 LANE_BITS = 7
@@ -246,12 +247,10 @@ def _build_on_card(gate_types, controls, angles, layer_mask, n_qubits, absorb_di
     tensors' card and its current stream: the outputs are views of one
     float32 and one int32 allocation, and nothing is copied from the host.
     Refuses n > 32, mixed devices and shapes the kernel does not read."""
-    from queasars_tpu_torch.utils import cuda_lib
-
     if not 1 <= n_qubits <= BUILD_KERNEL_MAX_QUBITS:
         raise ValueError(
             f"qt_fold_build takes 1 <= n_qubits <= {BUILD_KERNEL_MAX_QUBITS}, got {n_qubits}")
-    if not _on_cuda(gate_types, controls, angles, layer_mask):
+    if not on_cuda(gate_types, controls, angles, layer_mask):
         raise ValueError("qt_fold_build runs on the card; the CPU takes build_fold_pipeline_plain")
     pop, n_layers, n = gate_types.shape
     inputs = []

@@ -8,12 +8,12 @@ contracts them against the group's diagonal table in the rotated basis.  The
 operator's energy is the identity constant plus the sum over groups.
 
 Two entry points, chosen by ``optim/objective.py`` as the reference's
-``population_energies`` chooses them:
+``population_energies`` chooses them, on the route ``sim/routes.py`` picks:
 
 - :func:`grouped_shot_energies_kernels` (the in-kernel samplers' sizes,
-  14 <= n <= 21 on the fold route, 14 <= n <= 20 on the slot route): the
-  one-launch grouped kernel (``fold_kernels.grouped_shot_indices_folded``,
-  one circuit, every group rotated and sampled), or one sampled-kernel
+  ``routes.sampler_route``): the one-launch grouped kernel
+  (``fold_kernels.grouped_shot_indices_folded``, one circuit, every group
+  rotated and sampled; ``routes.grouped_one_launch``), or one sampled-kernel
   launch per group on the circuit with the group's rotation appended (the
   folded sampler on an extended pipeline, or the slot sampler on an
   extended genome);
@@ -28,15 +28,13 @@ boundary draws.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from queasars_tpu_torch.sim import fold_kernels, slot_kernels
+from queasars_tpu_torch.sim import fold_kernels, routes, slot_kernels
 from queasars_tpu_torch.sim.fold_pipeline import (
-    build_fold_pipeline,
     extend_fold_pipeline_with_rotation,
     rotation_layer_factors,
 )
@@ -247,31 +245,23 @@ def append_rotation_layer(gate_types, controls, angles, layer_mask, rot_type, ro
     )
 
 
-def one_launch_enabled() -> bool:
-    """``QUEASARS_GROUPED_ONE_LAUNCH`` unset or "1" (the reference's knob):
-    the fold route samples every group in one grouped-kernel call."""
-    return os.environ.get("QUEASARS_GROUPED_ONE_LAUNCH", "1") == "1"
-
-
 def grouped_shot_energies_kernels(
     gate_types, controls, angles, layer_mask, keys, operands: GroupedOperands, *,
-    n_qubits: int, shots, initial_state=None, use_mxu=None,
+    n_qubits: int, shots, fold: bool, initial_state=None,
 ):
     """Grouped sampling on the in-kernel samplers (the reference's
-    ``grouped_shot_energies_pallas``): on the fold route (``use_mxu``, None:
-    ``QUEASARS_MXU``) the one-launch grouped kernel when
-    :func:`one_launch_enabled` and ``grouped_fold_supported`` hold, else the
-    folded sampler once per group on the base pipeline extended by that
-    group's rotation; on the slot route the slot sampler once per group on
-    the genome extended by the rotation layer.  ``initial_state``: None or
-    per-individual [P, 2, 2^n]; ``shots``: an int or a per-group tuple."""
-    from queasars_tpu_torch.optim.objective import mxu_fold_enabled
-
+    ``grouped_shot_energies_pallas``): on the fold route (``fold``, from
+    ``routes.sampler_route``) the one-launch grouped kernel when
+    ``routes.grouped_one_launch`` holds, else the folded sampler once per
+    group on the base pipeline extended by that group's rotation; on the
+    slot route the slot sampler once per group on the genome extended by the
+    rotation layer.  ``initial_state``: None or per-individual [P, 2, 2^n];
+    ``shots``: an int or a per-group tuple."""
     device = angles.device
     n_groups = operands.tables.shape[0]
     counts = group_shot_counts(shots, n_groups)
     total = torch.zeros(gate_types.shape[0], dtype=torch.float32, device=device)
-    if not mxu_fold_enabled(use_mxu, n_qubits, "sampler", device):
+    if not fold:
         for g, g_shots in enumerate(counts):
             ext = append_rotation_layer(
                 gate_types, controls, angles, layer_mask,
@@ -282,8 +272,8 @@ def grouped_shot_energies_kernels(
             )
             total = total + row_mean(operands.tables[g][idx.long()])
         return operands.const + total
-    base = build_fold_pipeline(gate_types, controls, angles, layer_mask, n_qubits, absorb_diag=True)
-    if one_launch_enabled() and fold_kernels.grouped_fold_supported(n_qubits, device, n_groups):
+    base = routes.fold_pipeline(gate_types, controls, angles, layer_mask, n_qubits)
+    if routes.grouped_one_launch(n_qubits, device, n_groups):
         fracs = [_group_uniforms(keys, g, s, device) for g, s in enumerate(counts)]
         indices = fold_kernels.grouped_shot_indices_folded(
             base, operands.rot_factors, operands.rot_active, fracs, n_qubits, initial_state,

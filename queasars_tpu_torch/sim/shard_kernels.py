@@ -41,7 +41,8 @@ from __future__ import annotations
 import torch
 
 from queasars_tpu_torch.sim.sampling import running_sum as running_sum_plain
-from queasars_tpu_torch.sim.slot_kernels import _expect, _library, _on_cuda, _ptr, _stream
+from queasars_tpu_torch.utils import cuda_lib
+from queasars_tpu_torch.utils.cuda_lib import expect, on_cuda, ptr, stream
 
 launch_counts: dict[str, int] = {
     "shard_pair_combine": 0,
@@ -70,7 +71,7 @@ def _expect_aligned(t: torch.Tensor, name: str) -> None:
 
 def _shard_shape(state: torch.Tensor, local_bits: int) -> int:
     rows = state.shape[0]
-    _expect(state, "state", torch.float32, (rows, 2, 1 << local_bits))
+    expect(state, "state", torch.float32, (rows, 2, 1 << local_bits))
     return rows
 
 
@@ -118,25 +119,23 @@ def pair_combine(state, partner, entries, ctrl_bit, enabled, local_bits: int, ta
     :param ctrl_bit: [B] int32, a local control bit (-1: none)
     :param enabled: [B] bool; a row that is off is copied unchanged
     """
-    tensors = (state, entries, ctrl_bit, enabled) + (() if partner is None else (partner,))
-    if not _on_cuda(*tensors):
+    if not on_cuda(state, entries, ctrl_bit, enabled, partner):
         return pair_combine_plain(state, partner, entries, ctrl_bit, enabled, local_bits,
                                   target, side)
     rows = _shard_shape(state, local_bits)
     if (partner is None) != (target >= 0) or not -1 <= target < local_bits:
         raise ValueError("a local target takes no partner, a global one (-1) needs one")
     if partner is not None:
-        _expect(partner, "partner", torch.float32, tuple(state.shape))
-    _expect(entries, "entries", torch.float32, (rows, 8))
-    _expect(ctrl_bit, "ctrl_bit", torch.int32, (rows,))
-    _expect(enabled, "enabled", torch.bool, (rows,))
+        expect(partner, "partner", torch.float32, tuple(state.shape))
+    expect(entries, "entries", torch.float32, (rows, 8))
+    expect(ctrl_bit, "ctrl_bit", torch.int32, (rows,))
+    expect(enabled, "enabled", torch.bool, (rows,))
     out = torch.empty_like(state)
-    lib = _library()
-    status = lib.load().qt_shard_pair_combine(
-        out.data_ptr(), state.data_ptr(), _ptr(partner), entries.data_ptr(),
-        ctrl_bit.data_ptr(), enabled.data_ptr(), rows, local_bits, target, int(side), _stream(),
+    status = cuda_lib.load().qt_shard_pair_combine(
+        out.data_ptr(), state.data_ptr(), ptr(partner), entries.data_ptr(),
+        ctrl_bit.data_ptr(), enabled.data_ptr(), rows, local_bits, target, int(side), stream(),
     )
-    lib.check(status, "qt_shard_pair_combine")
+    cuda_lib.check(status, "qt_shard_pair_combine")
     launch_counts["shard_pair_combine"] += 1
     return out
 
@@ -166,20 +165,19 @@ def group_product(state, entries, local_bits: int, q0: int, m: int):
     :param entries: [B, m, 8] float32, qubit q0 + j's factor at j as u00,
         u01, u10, u11 (re, im) pairs (``sharded_fold.factor_entries``)
     """
-    if not _on_cuda(state, entries):
+    if not on_cuda(state, entries):
         return group_product_plain(state, entries, local_bits, q0, m)
     rows = _shard_shape(state, local_bits)
     if not (1 <= m <= GROUP_MAX and 0 <= q0 and q0 + m <= local_bits and 5 <= local_bits <= 30):
         raise ValueError(f"the group kernel takes 1 <= m <= {GROUP_MAX} qubits inside a shard "
                          f"of 2^5 to 2^30 amplitudes")
-    _expect(entries, "entries", torch.float32, (rows, m, 8))
+    expect(entries, "entries", torch.float32, (rows, m, 8))
     _expect_aligned(state, "state")
     out = torch.empty_like(state)
-    lib = _library()
-    status = lib.load().qt_shard_group_product(
-        out.data_ptr(), state.data_ptr(), entries.data_ptr(), rows, local_bits, q0, m, _stream(),
+    status = cuda_lib.load().qt_shard_group_product(
+        out.data_ptr(), state.data_ptr(), entries.data_ptr(), rows, local_bits, q0, m, stream(),
     )
-    lib.check(status, "qt_shard_group_product")
+    cuda_lib.check(status, "qt_shard_group_product")
     launch_counts["shard_group_product"] += 1
     return out
 
@@ -221,19 +219,18 @@ def diag_phase(state, ctrl, tgt, phase, local_bits: int, cell: int):
     :param phase: [B, D, 2, 2] float32, by the target's bit then (re, im)
     :param cell: the shard's index on the amplitude axis (its global bits)
     """
-    if not _on_cuda(state, ctrl, tgt, phase):
+    if not on_cuda(state, ctrl, tgt, phase):
         return diag_phase_plain(state, ctrl, tgt, phase, local_bits, cell)
     rows = _shard_shape(state, local_bits)
     slots = ctrl.shape[1]
-    _expect(ctrl, "ctrl", torch.int32, (rows, slots))
-    _expect(tgt, "tgt", torch.int32, (rows, slots))
-    _expect(phase, "phase", torch.float32, (rows, slots, 2, 2))
-    lib = _library()
-    status = lib.load().qt_shard_diag_phase(
+    expect(ctrl, "ctrl", torch.int32, (rows, slots))
+    expect(tgt, "tgt", torch.int32, (rows, slots))
+    expect(phase, "phase", torch.float32, (rows, slots, 2, 2))
+    status = cuda_lib.load().qt_shard_diag_phase(
         state.data_ptr(), ctrl.data_ptr(), tgt.data_ptr(), phase.data_ptr(), rows, local_bits,
-        slots, int(cell), _stream(),
+        slots, int(cell), stream(),
     )
-    lib.check(status, "qt_shard_diag_phase")
+    cuda_lib.check(status, "qt_shard_diag_phase")
     launch_counts["shard_diag_phase"] += 1
     return state
 
@@ -248,7 +245,7 @@ def running_sum(values, seg_len: int):
     along the last axis of ``values`` [..., S * seg_len], in XLA's CPU
     order for a cumsum (``sim/sampling.py::running_sum``)."""
     shape = values.shape
-    if not _on_cuda(values):
+    if not on_cuda(values):
         return running_sum_plain(values.reshape(-1, seg_len)).reshape(shape)
     if not 1 <= seg_len <= RUNNING_SUM_MAX or seg_len & (seg_len - 1):
         raise ValueError(f"segments must hold a power of two up to {RUNNING_SUM_MAX} values")
@@ -258,10 +255,9 @@ def running_sum(values, seg_len: int):
         raise ValueError(f"{values.numel()} values do not make whole segments of {seg_len}")
     _expect_aligned(values, "values")
     out = torch.empty_like(values)
-    lib = _library()
-    status = lib.load().qt_shard_running_sum(
-        out.data_ptr(), values.data_ptr(), values.numel(), seg_len, _stream(),
+    status = cuda_lib.load().qt_shard_running_sum(
+        out.data_ptr(), values.data_ptr(), values.numel(), seg_len, stream(),
     )
-    lib.check(status, "qt_shard_running_sum")
+    cuda_lib.check(status, "qt_shard_running_sum")
     launch_counts["shard_running_sum"] += 1
     return out

@@ -20,8 +20,8 @@ the blocked inverse CDF over fixed global-index blocks
   (``build_device_table``); ``table_mode="host"`` builds it on the host in
   float64 and ships each cell its shard.
 - Exact energies take the fold route (``sim/sharded_fold.py``) for a
-  diagonal operator at n >= 10 unless ``QUEASARS_SHARD_FOLD=0`` or
-  ``use_fold=False``, else the per-gate route
+  diagonal operator where ``routes.shard_fold`` says (n >= 10 unless
+  ``QUEASARS_SHARD_FOLD=0`` or ``use_fold=False``), else the per-gate route
   (``sharded_statevector.simulate_local``).
 - Exact CVaR bisects the alpha-quantile energy level on the cumulative mass
   (one fixed-tree sum per step), with no sort and no gather of 2^n values.
@@ -37,7 +37,6 @@ the blocked inverse CDF over fixed global-index blocks
 from __future__ import annotations
 
 import math
-import os
 from typing import Optional, Union
 
 import numpy as np
@@ -63,6 +62,7 @@ from queasars_tpu_torch.sim.evaluators import (
     _prepare_initial_state,
     packed_tensors,
 )
+from queasars_tpu_torch.sim import routes
 from queasars_tpu_torch.sim.expectation import cvar_expectation_from_shot_energies
 from queasars_tpu_torch.sim.shard_kernels import _amp_bit
 from queasars_tpu_torch.sim.sharded_fold import check_folded_bits, default_folded_bits
@@ -90,11 +90,6 @@ __all__ = [
     "as_pop_amp_mesh",
     "pop_amp_mesh",
 ]
-
-
-def _fold_default() -> bool:
-    """Default of ``use_fold``: on unless ``QUEASARS_SHARD_FOLD=0``."""
-    return os.environ.get("QUEASARS_SHARD_FOLD", "1") == "1"
 
 
 class AmplitudeShardedExpectationEvaluator(BaseCircuitEvaluator):
@@ -207,9 +202,7 @@ class AmplitudeShardedExpectationEvaluator(BaseCircuitEvaluator):
         self._initial_state = initial_state
         self._initial_full: Optional[torch.Tensor] = None
         self._initial_shards = self._prepare_initial_sharded(initial_state)
-        # the route never depends on the mesh (the bit-identity contract)
-        fold = (_fold_default() and self.n_qubits >= 10) if use_fold is None else bool(use_fold)
-        self._use_fold = fold and self._diagonal
+        self._use_fold = routes.shard_fold(use_fold, self.n_qubits) and self._diagonal
         self.folded_bits = default_folded_bits(self.n_qubits)
         if self._use_fold:
             check_folded_bits(self.local_bits, self.folded_bits)

@@ -52,6 +52,8 @@ import torch
 
 from queasars_tpu_torch.sim.sampling import hierarchical_sample_plain
 from queasars_tpu_torch.sim.statevector import probabilities, simulate_circuits
+from queasars_tpu_torch.utils import cuda_lib
+from queasars_tpu_torch.utils.cuda_lib import expect, on_cuda, ptr, stream
 from queasars_tpu_torch.utils.profiling import span
 
 launch_counts: dict[str, int] = {
@@ -68,7 +70,7 @@ launch_counts: dict[str, int] = {
 ENGINE_MAX_QUBITS = 31
 #: the in-kernel samplers' smallest size (the block hierarchy needs 128 rows
 #: of 128 lanes) and the slot sampler's largest (the reference's cap; the
-#: fold sampler reaches 21, ``fold_kernels._CAPS["sampler"]``)
+#: fold sampler reaches 21, ``fold_kernels.SAMPLER_MAX_QUBITS``)
 SAMPLER_MIN_QUBITS = 14
 SAMPLER_MAX_QUBITS = 20
 
@@ -83,26 +85,6 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the card, False when every one lies on
-    the CPU; anything else (mixed or another device) is refused."""
-    devices = {t.device for t in tensors}
-    if all(d.type == "cpu" for d in devices):
-        return False
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"tensors must all lie on one CUDA device or all on the CPU: {devices}")
-    return True
-
-
-def _expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _check_width(n_qubits: int) -> None:
     if not 1 <= n_qubits <= ENGINE_MAX_QUBITS:
         raise ValueError(f"the slot kernels need 1 <= n_qubits <= {ENGINE_MAX_QUBITS}")
@@ -111,25 +93,11 @@ def _check_width(n_qubits: int) -> None:
 def _check_genome(gate_types, controls, angles, layer_mask, n_qubits):
     _check_width(n_qubits)
     pop, n_layers = gate_types.shape[0], gate_types.shape[1]
-    _expect(gate_types, "gate_types", torch.int32, (pop, n_layers, n_qubits))
-    _expect(controls, "controls", torch.int32, (pop, n_layers, n_qubits))
-    _expect(angles, "angles", torch.float32, (pop, n_layers, n_qubits, 3))
-    _expect(layer_mask, "layer_mask", torch.bool, (pop, n_layers))
+    expect(gate_types, "gate_types", torch.int32, (pop, n_layers, n_qubits))
+    expect(controls, "controls", torch.int32, (pop, n_layers, n_qubits))
+    expect(angles, "angles", torch.float32, (pop, n_layers, n_qubits, 3))
+    expect(layer_mask, "layer_mask", torch.bool, (pop, n_layers))
     return pop, n_layers
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
-
-
-def _stream():
-    return torch.cuda.current_stream().cuda_stream
-
-
-def _library():
-    from queasars_tpu_torch.utils import cuda_lib
-
-    return cuda_lib
 
 
 # ---------------------------------------------------------------------------
@@ -145,19 +113,17 @@ def population_states_plain(gate_types, controls, angles, layer_mask, n_qubits, 
 def population_states(gate_types, controls, angles, layer_mask, n_qubits, initial=None):
     """Statevector planes [P, 2, 2^n] after each genome's circuit, from
     |0...0> or from per-individual ``initial`` [P, 2, 2^n] states."""
-    tensors = (gate_types, controls, angles, layer_mask) + (() if initial is None else (initial,))
-    if not _on_cuda(*tensors):
+    if not on_cuda(gate_types, controls, angles, layer_mask, initial):
         return population_states_plain(gate_types, controls, angles, layer_mask, n_qubits, initial)
     pop, n_layers = _check_genome(gate_types, controls, angles, layer_mask, n_qubits)
     if initial is not None:
-        _expect(initial, "initial", torch.float32, (pop, 2, 1 << n_qubits))
+        expect(initial, "initial", torch.float32, (pop, 2, 1 << n_qubits))
     out = torch.empty((pop, 2, 1 << n_qubits), dtype=torch.float32, device=angles.device)
-    lib = _library()
-    status = lib.load().qt_population_states(
-        out.data_ptr(), _ptr(initial), gate_types.data_ptr(), controls.data_ptr(),
-        angles.data_ptr(), layer_mask.data_ptr(), pop, n_layers, n_qubits, _stream(),
+    status = cuda_lib.load().qt_population_states(
+        out.data_ptr(), ptr(initial), gate_types.data_ptr(), controls.data_ptr(),
+        angles.data_ptr(), layer_mask.data_ptr(), pop, n_layers, n_qubits, stream(),
     )
-    lib.check(status, "qt_population_states")
+    cuda_lib.check(status, "qt_population_states")
     launch_counts["population_states"] += 1
     return out
 
@@ -177,19 +143,16 @@ def energies_exact(gate_types, controls, angles, layer_mask, table, n_qubits, in
     """Exact diagonal energies [P]: sum_i |psi_i|^2 * table[i] after each
     genome's circuit (from |0...0> or per-individual ``initial``).  The
     reduction is deterministic: equal inputs give equal bits."""
-    tensors = (gate_types, controls, angles, layer_mask, table)
-    tensors += () if initial is None else (initial,)
-    if not _on_cuda(*tensors):
+    if not on_cuda(gate_types, controls, angles, layer_mask, table, initial):
         return energies_exact_plain(
             gate_types, controls, angles, layer_mask, table, n_qubits, initial
         )
     pop, n_layers = _check_genome(gate_types, controls, angles, layer_mask, n_qubits)
     dim = 1 << n_qubits
-    _expect(table, "table", torch.float32, (dim,))
+    expect(table, "table", torch.float32, (dim,))
     if initial is not None:
-        _expect(initial, "initial", torch.float32, (pop, 2, dim))
-    lib = _library()
-    kernels = lib.load()
+        expect(initial, "initial", torch.float32, (pop, 2, dim))
+    kernels = cuda_lib.load()
     device = angles.device
     out = torch.empty(pop, dtype=torch.float32, device=device)
     work = torch.empty((pop, 2, dim), dtype=torch.float32, device=device)
@@ -197,11 +160,11 @@ def energies_exact(gate_types, controls, angles, layer_mask, table, n_qubits, in
         (pop, kernels.qt_energy_partials(n_qubits)), dtype=torch.float32, device=device
     )
     status = kernels.qt_energies_exact(
-        out.data_ptr(), work.data_ptr(), partial.data_ptr(), _ptr(initial),
+        out.data_ptr(), work.data_ptr(), partial.data_ptr(), ptr(initial),
         gate_types.data_ptr(), controls.data_ptr(), angles.data_ptr(), layer_mask.data_ptr(),
-        table.data_ptr(), pop, n_layers, n_qubits, _stream(),
+        table.data_ptr(), pop, n_layers, n_qubits, stream(),
     )
-    lib.check(status, "qt_energies_exact")
+    cuda_lib.check(status, "qt_energies_exact")
     launch_counts["energies_exact"] += 1
     return out
 
@@ -218,23 +181,21 @@ def population_probs_plain(gate_types, controls, angles, layer_mask, n_qubits, i
 
 def population_probs(gate_types, controls, angles, layer_mask, n_qubits, initial=None):
     """Measurement probabilities [P, 2^n] after each genome's circuit."""
-    tensors = (gate_types, controls, angles, layer_mask) + (() if initial is None else (initial,))
-    if not _on_cuda(*tensors):
+    if not on_cuda(gate_types, controls, angles, layer_mask, initial):
         return population_probs_plain(gate_types, controls, angles, layer_mask, n_qubits, initial)
     pop, n_layers = _check_genome(gate_types, controls, angles, layer_mask, n_qubits)
     dim = 1 << n_qubits
     if initial is not None:
-        _expect(initial, "initial", torch.float32, (pop, 2, dim))
+        expect(initial, "initial", torch.float32, (pop, 2, dim))
     device = angles.device
     probs = torch.empty((pop, dim), dtype=torch.float32, device=device)
     work = torch.empty((pop, 2, dim), dtype=torch.float32, device=device)
-    lib = _library()
-    status = lib.load().qt_population_probs(
-        probs.data_ptr(), work.data_ptr(), _ptr(initial), gate_types.data_ptr(),
+    status = cuda_lib.load().qt_population_probs(
+        probs.data_ptr(), work.data_ptr(), ptr(initial), gate_types.data_ptr(),
         controls.data_ptr(), angles.data_ptr(), layer_mask.data_ptr(),
-        pop, n_layers, n_qubits, _stream(),
+        pop, n_layers, n_qubits, stream(),
     )
-    lib.check(status, "qt_population_probs")
+    cuda_lib.check(status, "qt_population_probs")
     launch_counts["population_probs"] += 1
     return probs
 
@@ -308,7 +269,7 @@ def nft_layer_sweep(
     then the step loop only enqueues launches.
     """
     tensors = (gate_types, controls, angles, coords, n_free, active, prefix, table)
-    if not _on_cuda(*tensors):
+    if not on_cuda(*tensors):
         return nft_layer_sweep_plain(
             gate_types, controls, angles, coords, n_free, active, prefix, table,
             n_qubits, maxiter, reset_interval,
@@ -316,18 +277,17 @@ def nft_layer_sweep(
     _check_width(n_qubits)
     pop, dim = gate_types.shape[0], 1 << n_qubits
     k_max = coords.shape[1]
-    _expect(gate_types, "gate_types", torch.int32, (pop, n_qubits))
-    _expect(controls, "controls", torch.int32, (pop, n_qubits))
-    _expect(angles, "angles", torch.float32, (pop, n_qubits, 3))
-    _expect(coords, "coords", torch.int32, (pop, k_max, 2))
-    _expect(n_free, "n_free", torch.int32, (pop,))
-    _expect(active, "active", torch.bool, (pop,))
-    _expect(prefix, "prefix", torch.float32, (pop, 2, dim))
-    _expect(table, "table", torch.float32, (dim,))
+    expect(gate_types, "gate_types", torch.int32, (pop, n_qubits))
+    expect(controls, "controls", torch.int32, (pop, n_qubits))
+    expect(angles, "angles", torch.float32, (pop, n_qubits, 3))
+    expect(coords, "coords", torch.int32, (pop, k_max, 2))
+    expect(n_free, "n_free", torch.int32, (pop,))
+    expect(active, "active", torch.bool, (pop,))
+    expect(prefix, "prefix", torch.float32, (pop, 2, dim))
+    expect(table, "table", torch.float32, (dim,))
     if k_max < 1 or maxiter < 0 or reset_interval < 1:
         raise ValueError("need k_max >= 1, maxiter >= 0 and reset_interval >= 1")
-    lib = _library()
-    kernels = lib.load()
+    kernels = cuda_lib.load()
     device = angles.device
     out_angles = torch.empty_like(angles)
     z = torch.empty(pop, dtype=torch.float32, device=device)
@@ -345,9 +305,9 @@ def nft_layer_sweep(
     status = kernels.qt_nft_layer_sweep(
         out_angles.data_ptr(), z.data_ptr(), *(t.data_ptr() for t in work),
         transitions.ctypes.data, *(t.data_ptr() for t in tensors),
-        pop, n_qubits, k_max, maxiter, reset_interval, _stream(),
+        pop, n_qubits, k_max, maxiter, reset_interval, stream(),
     )
-    lib.check(status, "qt_nft_layer_sweep")
+    cuda_lib.check(status, "qt_nft_layer_sweep")
     launch_counts["nft_layer_sweep"] += 1
     return out_angles, z
 
@@ -357,16 +317,16 @@ def nft_layer_sweep(
 # ---------------------------------------------------------------------------
 
 
-def _check_uniforms(u_frac: torch.Tensor, pop: int) -> int:
+def check_uniforms(u_frac: torch.Tensor, pop: int) -> int:
     if u_frac.dim() != 2 or u_frac.shape[0] != pop or u_frac.shape[1] < 1:
         raise ValueError(f"u_frac must be [{pop}, shots], got {tuple(u_frac.shape)}")
-    _expect(u_frac, "u_frac", torch.float32, (pop, u_frac.shape[1]))
+    expect(u_frac, "u_frac", torch.float32, (pop, u_frac.shape[1]))
     return u_frac.shape[1]
 
 
 def sampler_scratch(pop: int, n_qubits: int, device) -> torch.Tensor:
     """The sampler epilogue's scratch for ``pop`` individuals."""
-    floats = _library().load().qt_sampler_scratch(n_qubits)
+    floats = cuda_lib.load().qt_sampler_scratch(n_qubits)
     return torch.empty((pop, floats), dtype=torch.float32, device=device)
 
 
@@ -379,21 +339,20 @@ def sample_planes(states, u_frac, n_qubits):
     """Sampled basis indices int32 [P, S] of state planes [P, 2, 2^n]
     (14 <= n <= 21) at the uniforms ``u_frac`` [P, S] in [0, 1): the
     sampled kernels' epilogue alone."""
-    if not _on_cuda(states, u_frac):
+    if not on_cuda(states, u_frac):
         return sample_planes_plain(states, u_frac, n_qubits)
     if not SAMPLER_MIN_QUBITS <= n_qubits <= 21:
         raise ValueError("the sampler epilogue needs 14 <= n_qubits <= 21")
     pop = states.shape[0]
-    _expect(states, "states", torch.float32, (pop, 2, 1 << n_qubits))
-    shots = _check_uniforms(u_frac, pop)
+    expect(states, "states", torch.float32, (pop, 2, 1 << n_qubits))
+    shots = check_uniforms(u_frac, pop)
     out = torch.empty((pop, shots), dtype=torch.int32, device=states.device)
     scratch = sampler_scratch(pop, n_qubits, states.device)
-    lib = _library()
-    status = lib.load().qt_sample_planes(
+    status = cuda_lib.load().qt_sample_planes(
         out.data_ptr(), scratch.data_ptr(), u_frac.data_ptr(), states.data_ptr(),
-        pop, n_qubits, shots, _stream(),
+        pop, n_qubits, shots, stream(),
     )
-    lib.check(status, "qt_sample_planes")
+    cuda_lib.check(status, "qt_sample_planes")
     launch_counts["sample_planes"] += 1
     return out
 
@@ -414,9 +373,7 @@ def sampled_shot_indices(
     |0...0> or per-individual ``initial``), at the uniforms ``u_frac``
     [P, S] in [0, 1): ``u = frac * total`` resolved by the hierarchical
     inverse CDF (14 <= n <= 20).  The caller gathers ``table[indices]``."""
-    tensors = (gate_types, controls, angles, layer_mask, u_frac)
-    tensors += () if initial is None else (initial,)
-    if not _on_cuda(*tensors):
+    if not on_cuda(gate_types, controls, angles, layer_mask, u_frac, initial):
         return sampled_shot_indices_plain(
             gate_types, controls, angles, layer_mask, u_frac, n_qubits, initial
         )
@@ -427,19 +384,18 @@ def sampled_shot_indices(
     pop, n_layers = _check_genome(gate_types, controls, angles, layer_mask, n_qubits)
     dim = 1 << n_qubits
     if initial is not None:
-        _expect(initial, "initial", torch.float32, (pop, 2, dim))
-    shots = _check_uniforms(u_frac, pop)
+        expect(initial, "initial", torch.float32, (pop, 2, dim))
+    shots = check_uniforms(u_frac, pop)
     device = angles.device
     out = torch.empty((pop, shots), dtype=torch.int32, device=device)
     work = torch.empty((pop, 2, dim), dtype=torch.float32, device=device)
     scratch = sampler_scratch(pop, n_qubits, device)
-    lib = _library()
-    status = lib.load().qt_sampled_shot_indices(
-        out.data_ptr(), work.data_ptr(), scratch.data_ptr(), u_frac.data_ptr(), _ptr(initial),
+    status = cuda_lib.load().qt_sampled_shot_indices(
+        out.data_ptr(), work.data_ptr(), scratch.data_ptr(), u_frac.data_ptr(), ptr(initial),
         gate_types.data_ptr(), controls.data_ptr(), angles.data_ptr(), layer_mask.data_ptr(),
-        pop, n_layers, n_qubits, shots, _stream(),
+        pop, n_layers, n_qubits, shots, stream(),
     )
-    lib.check(status, "qt_sampled_shot_indices")
+    cuda_lib.check(status, "qt_sampled_shot_indices")
     launch_counts["sampled_shot_indices"] += 1
     return out
 
@@ -466,18 +422,18 @@ class NFTSteps:
     """
 
     def __init__(self, angles, coords, n_free, active):
-        if not _on_cuda(angles, coords, n_free, active):
+        if not on_cuda(angles, coords, n_free, active):
             raise ValueError("NFTSteps runs on the card; the CPU takes _nft_steps_torch")
         angles = angles.contiguous()
         pop, n_layers, n_qubits, _ = angles.shape
-        _expect(angles, "angles", torch.float32, (pop, n_layers, n_qubits, 3))
+        expect(angles, "angles", torch.float32, (pop, n_layers, n_qubits, 3))
         if coords.dim() != 3 or coords.shape[0] != pop or coords.shape[2] != 3:
             raise ValueError(f"coords must be [{pop}, K, 3], got {tuple(coords.shape)}")
         self._coords = coords.to(torch.int32).contiguous()
         self._n_free = n_free.to(torch.int32).contiguous()
         self._active = active.to(torch.bool).contiguous()
-        _expect(self._n_free, "n_free", torch.int32, (pop,))
-        _expect(self._active, "active", torch.bool, (pop,))
+        expect(self._n_free, "n_free", torch.int32, (pop,))
+        expect(self._active, "active", torch.bool, (pop,))
         self.angles = torch.empty_like(angles)
         self.plus = torch.empty_like(angles)
         self.minus = torch.empty_like(angles)
@@ -492,21 +448,20 @@ class NFTSteps:
         (the -pi/2 probe's), each [P] float32; with ``probe_next``, step
         k+1's probes.  Returns :attr:`z`."""
         z0, z1, z3 = z0.contiguous(), z1.contiguous(), z3.contiguous()
-        _on_cuda(self.angles, z0, z1, z3)
+        on_cuda(self.angles, z0, z1, z3)
         for z, name in ((z0, "z0"), (z1, "z1"), (z3, "z3")):
-            _expect(z, name, torch.float32, (self._sizes[0],))
+            expect(z, name, torch.float32, (self._sizes[0],))
         self._launch(self.angles, z0, z1, z3, k, k + 1 if probe_next else -1)
         return self.z
 
     def _launch(self, src, z0, z1, z3, update_k, probe_k):
-        lib = _library()
         with torch.cuda.device(self._device):
-            status = lib.load().qt_nft_step(
+            status = cuda_lib.load().qt_nft_step(
                 src.data_ptr(), self.angles.data_ptr(), self.plus.data_ptr(),
-                self.minus.data_ptr(), self.z.data_ptr(), _ptr(z0), _ptr(z1), _ptr(z3),
+                self.minus.data_ptr(), self.z.data_ptr(), ptr(z0), ptr(z1), ptr(z3),
                 self._coords.data_ptr(), self._n_free.data_ptr(), self._active.data_ptr(),
                 *self._sizes, update_k, probe_k,
                 torch.cuda.current_stream(self._device).cuda_stream,
             )
-        lib.check(status, "qt_nft_step")
+        cuda_lib.check(status, "qt_nft_step")
         launch_counts["nft_step"] += 1

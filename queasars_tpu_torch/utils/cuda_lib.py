@@ -6,7 +6,8 @@ Each source is compiled by its own ``nvcc`` process, all started together,
 and one more ``nvcc`` call links the objects into a shared library with a
 plain C interface, loaded with ``ctypes``.  No PyTorch header is included,
 so the build takes seconds; nothing is built when this module is imported,
-only at the first launch (or an explicit :func:`build`).
+only at the first launch (or an explicit :func:`build`).  The wrappers' call
+plumbing lives here too: :func:`on_cuda`, :func:`expect`, :func:`ptr`, :func:`stream`.
 
 The library lands in ``build/queasars_tpu_torch/`` at the repository root,
 under a name that carries a hash of the sources and flags, so an edited
@@ -25,6 +26,8 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 SOURCE_DIR = PACKAGE_DIR / "csrc"
@@ -166,3 +169,35 @@ def check(status: int, name: str) -> None:
     """Raise when a C entry point reports a CUDA error."""
     if status != 0:
         raise RuntimeError(f"{name} failed with CUDA error {status}")
+
+
+def on_cuda(*tensors: torch.Tensor | None) -> bool:
+    """True when every tensor lies on the card, False when every one lies on
+    the CPU; anything else (mixed or another device) is refused.  None
+    entries (absent optional arguments) are skipped."""
+    devices = {t.device for t in tensors if t is not None}
+    if all(d.type == "cpu" for d in devices):
+        return False
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"tensors must all lie on one CUDA device or all on the CPU: {devices}")
+    return True
+
+
+def expect(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> None:
+    """Refuse a kernel argument of another dtype or shape, or not contiguous."""
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(t: torch.Tensor | None):
+    """A tensor's device pointer, None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def stream():
+    """The current CUDA stream's handle."""
+    return torch.cuda.current_stream().cuda_stream

@@ -4,9 +4,9 @@ the CPU as tests/test_fold_kernels.py runs them, on one pipeline (built by
 the JAX package, absorbed phases on, carried over with ``interop``).
 
 Tolerances are the JAX tests': probabilities and states to 5e-6,
-energies ``atol=1e-4, rtol=1e-5`` on a random table.  Also the route
-predicates (``fold_supported``, ``mxu_fold_enabled``) and the sweep
-metadata, which must agree exactly.
+energies ``atol=1e-4, rtol=1e-5`` on a random table.  Also the sweep
+metadata, which must agree exactly.  The route predicates are in
+tests/test_torch_routes.py.
 """
 
 from __future__ import annotations
@@ -25,8 +25,6 @@ from queasars_tpu.sim.pallas_fold_kernels import (
     pallas_population_states_folded,
 )
 from queasars_tpu_torch.interop import fold_pipeline_from_numpy
-from queasars_tpu_torch.optim.objective import mxu_fold_enabled
-from queasars_tpu_torch.optim.prefix import choose_prefix_engine
 from queasars_tpu_torch.sim import fold_kernels as fk
 from tests.test_torch_fold_pipeline import genome
 
@@ -81,40 +79,6 @@ def test_sweep_metadata_matches_jax_exactly():
                          jax_metadata(gt[:, 1], ctrl[:, 1], n)):
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
-
-
-def test_fold_supported_ranges():
-    for path, cap in (("exact", 22), ("sampler", 21), ("sweep", 20)):
-        assert [n for n in range(4, 25) if fk.fold_supported(n, "cuda", path)] == list(
-            range(7, cap + 1))
-        assert not any(fk.fold_supported(n, "cpu", path) for n in range(4, 25))
-    with pytest.raises(ValueError):
-        fk.fold_supported(10, "cuda", "grouped")
-
-
-def test_mxu_fold_enabled_resolution(monkeypatch):
-    monkeypatch.delenv("QUEASARS_MXU", raising=False)
-    assert mxu_fold_enabled(None, 20, "sweep", device="cuda")
-    assert not mxu_fold_enabled(None, 21, "sweep", device="cuda")
-    assert mxu_fold_enabled(None, 21, device="cuda")
-    assert not mxu_fold_enabled(None, 6, device="cuda")
-    assert not mxu_fold_enabled(None, 20, device="cpu")
-    assert not mxu_fold_enabled(True, 20, device="cpu")
-    monkeypatch.setenv("QUEASARS_MXU", "0")
-    assert not mxu_fold_enabled(None, 20, device="cuda")
-    assert mxu_fold_enabled(True, 20, device="cuda")
-    assert not mxu_fold_enabled(False, 20, device="cuda")
-    monkeypatch.setenv("QUEASARS_MXU", "1")
-    assert mxu_fold_enabled(None, 20, device="cuda")
-
-
-def test_prefix_engine_choice(monkeypatch):
-    monkeypatch.delenv("QUEASARS_MXU", raising=False)
-    assert choose_prefix_engine(20, "cuda") == "slot"
-    assert choose_prefix_engine(21, "cuda") == "fold"
-    assert choose_prefix_engine(22, "cpu") == "slot"
-    monkeypatch.setenv("QUEASARS_MXU", "0")
-    assert choose_prefix_engine(22, "cuda") == "slot"
 
 
 def test_fold_wrappers_refuse_mixed_devices():
